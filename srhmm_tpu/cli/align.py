@@ -37,9 +37,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     ns = ap.parse_args(argv)
 
-    from ..utils import ensure_usable_backend
+    from ..ops.backend import enable_compile_cache
 
-    ensure_usable_backend()
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

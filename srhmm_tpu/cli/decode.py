@@ -8,7 +8,7 @@ Usage:
 model_list: list file of .hmm paths (the vocabulary); input_list: list file
 of .perfil paths (one utterance each) — for MULTI-STREAM vocabularies pass
 a comma-separated list of per-stream list files (the reference reads one
-feature file per stream, R2:331-339; round 5); output_file receives one
+feature file per stream, R2:331-339); output_file receives one
 line per utterance:  <perfil>  <score>  <word sequence>, plus N-best
 blocks when --n-best > 1.  --ref gives a transcript file (one line per utterance,
 space-separated words) and adds a WER summary.
@@ -17,10 +17,9 @@ space-separated words) and adds a WER summary.
 "word logprob") or W*W lines (bigram: "prev next logprob"), or a .npy
 array of shape (W,) / (W, W).  --lm-scale and --word-penalty are the
 standard acoustic/LM balance knobs (decode/continuous.py).  --batch packs
-every utterance into one padded batch and decodes them all in a single
-fused-kernel pass (decode_continuous_batch; n_best <= 2 — the kernels'
-in-kernel {unigram, bigram} x {K=1, 2} matrix); default is the
-per-utterance engine, which supports any n_best.
+every utterance into one padded batch and decodes them all as one program
+(decode_continuous_batch); default is the per-utterance engine.  Both
+support any n_best and give the same hypotheses.
 
 This is the capability the reference lacks entirely (isolated words only,
 SURVEY §0); BASELINE.json config 3.
@@ -72,13 +71,13 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--word-penalty", type=float, default=None)
     ap.add_argument(
         "--batch", action="store_true",
-        help="decode all utterances in one fused-kernel batch (n_best <= 2)",
+        help="decode all utterances as one padded batch",
     )
     ns = ap.parse_args(argv)
 
-    from ..utils import ensure_usable_backend
+    from ..ops.backend import enable_compile_cache
 
-    ensure_usable_backend()
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
@@ -117,8 +116,6 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("per-stream input lists must have equal lengths")
     multi = n_streams > 1
     if ns.batch:
-        if ns.n_best > 2:
-            raise SystemExit("--batch supports n_best <= 2 (fused kernels)")
         from ..io.dataset import pack_utterances
 
         batches = tuple(

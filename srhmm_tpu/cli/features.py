@@ -5,7 +5,6 @@ features with no extraction code, SURVEY §2.6).
 Usage:
     python -m srhmm_tpu.cli.features wav_list out_dir
         [--n-mfcc 13] [--n-mels 26] [--frame-length 400] [--frame-shift 160]
-        [--fused]     # use the fused Pallas MFCC kernel (TPU)
 
 wav_list: one 16-bit PCM WAV path per line; each produces
 out_dir/<stem>.perfil holding float64 MFCC frames.
@@ -41,7 +40,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--n-mels", type=int, default=26)
     ap.add_argument("--frame-length", type=int, default=400)
     ap.add_argument("--frame-shift", type=int, default=160)
-    ap.add_argument("--fused", action="store_true", help="fused Pallas kernel")
     ns = ap.parse_args(argv)
 
     import jax.numpy as jnp
@@ -61,12 +59,7 @@ def main(argv: list[str] | None = None) -> int:
             n_mels=ns.n_mels,
             n_mfcc=ns.n_mfcc,
         )
-        if ns.fused:
-            from ..features.pallas_mfcc import mfcc_pallas
-
-            feats = np.asarray(mfcc_pallas(jnp.asarray(x, jnp.float32), cfg))
-        else:
-            feats = np.asarray(mfcc(jnp.asarray(x), cfg))
+        feats = np.asarray(mfcc(jnp.asarray(x), cfg))
         out = out_dir / (Path(wav_path).stem + ".perfil")
         write_perfil(out, feats.astype(np.float64))
         print(f"{wav_path} -> {out} ({feats.shape[0]} frames x {feats.shape[1]})")

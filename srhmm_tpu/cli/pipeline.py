@@ -2,10 +2,10 @@
 
 The modern counterpart of running the reference's two programs back to back
 (train main T1:106, recognize main R1:87): a single invocation synthesizes a
-continuous-speech corpus, extracts fused MFCCs, flat-starts monophones with
+continuous-speech corpus, extracts MFCCs, flat-starts monophones with
 LBG, trains monophone embedded EM, clusters states into senones with the
 phonetic decision tree, trains the tied system, materializes the lexicon into
-decode word models, runs the bigram n-best fused decoder on held-out audio,
+decode word models, runs the batched bigram n-best decoder on held-out audio,
 and reports WER with per-stage wall times.
 
 Usage:
@@ -50,9 +50,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--quiet", action="store_true")
     ns = ap.parse_args(argv)
 
-    from ..utils import ensure_usable_backend
+    from ..ops.backend import enable_compile_cache
 
-    ensure_usable_backend()
+    enable_compile_cache()
 
     from ..pipeline import PipelineConfig, run_pipeline
 

@@ -17,16 +17,16 @@ Optional leading flags:
     --size-t-width N  .hmm size_t width (default 4, matching the fixtures)
     --numerics parity|fast
                       parity = float64 reference-exact EM (default; CPU);
-                      fast = log-space batched EM on the default device
-                      (TPU), f32, native batched data loading
+                      fast = log-space batched EM on the default device,
+                      f32, native batched data loading
     --checkpoint-dir D
                       (fast path) checkpoint every EM iteration to D and
                       resume from the newest complete checkpoint
     --scan-iters N    (fast path) fixed-budget production mode: run exactly
                       N EM iterations as ONE jitted lax.scan
                       (train/em.em_train_scan — no per-iteration program
-                      launches or host syncs; the 0.63 ms/iter trainer from
-                      PERF.md), skipping the reference's convergence rule
+                      launches or host syncs), skipping the reference's
+                      convergence rule
     --stream-shards N (fast path) stream the dataset through the device in
                       N shards with the async double-buffered input
                       pipeline (io/pipeline.py): shard k+1's host->device
@@ -77,11 +77,13 @@ def main(argv: list[str] | None = None) -> int:
     import jax
 
     if ns.numerics == "parity":
-        jax.config.update("jax_platforms", "cpu")  # f64 parity path
+        # the parity path is the reference-exact float64 oracle: it runs on
+        # the CPU's IEEE double arithmetic by design
+        jax.config.update("jax_platforms", "cpu")
     else:
-        from ..utils import ensure_usable_backend
+        from ..ops.backend import enable_compile_cache
 
-        ensure_usable_backend()
+        enable_compile_cache()
 
     from ..eval.report import (
         c_strftime_cpu,
@@ -224,19 +226,12 @@ def main(argv: list[str] | None = None) -> int:
                 # scan, zero host round trips inside the loop
                 import numpy as np
 
-                from ..ops.pallas.fused_em_pallas import trans_band
-                from ..train.em import _fused_lane_eligible, em_train_scan
+                from ..train.em import em_train_scan
                 from ..train.em_parity import TrainResult
 
-                use_fused = _fused_lane_eligible(fast_model, batch, False)
-                feats_tdb = band = None
-                if use_fused:
-                    band = trans_band(fast_model.trans)
-                    feats_tdb = jnp.transpose(batch.features, (1, 2, 0))
                 final, lps, nvs = em_train_scan(
-                    fast_model, batch, ns.scan_iters, feats_tdb,
-                    fused=use_fused, band=band, abs_floors=cmvn_abs_floors,
-                    zero_det_thresholds=cmvn_zd,
+                    fast_model, batch, ns.scan_iters,
+                    abs_floors=cmvn_abs_floors, zero_det_thresholds=cmvn_zd,
                 )
                 lps_h = np.asarray(lps) + cmvn_offset
                 nv = int(np.asarray(nvs)[-1])

@@ -19,15 +19,15 @@ Unit names of the form `left-center+right` are parsed as triphones (the
 HTK-style convention), which enables `--tied` decision-tree clustering
 across contexts; any other name is its own context-free unit.
 
-Without --tied: embedded EM over the unit inventory (train/embedded.py,
-fused composed-lattice kernels on TPU); OUTPUT_DIR gets one
+Without --tied: embedded EM over the unit inventory (train/embedded.py);
+OUTPUT_DIR gets one
 reference-compatible `<unit>.hmm` per unit plus `summary.json`.
 
 With --tied: monophone-cloned triphone seeding is assumed done by the
 caller (units ARE the inventory); per-(unit,state) occupancy statistics
 from one embedded E-step feed the phonetic decision tree
 (models/decision_tree.py), the tied system trains with
-train/tied.train_tied (fused senone-bank kernels on TPU), and OUTPUT_DIR
+train/tied.train_tied, and OUTPUT_DIR
 gets the materialized per-unit `.hmm` files plus `senone_map.json`
 (unit -> senone ids) and `summary.json`.
 
@@ -131,8 +131,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--var-floor", type=float, default=0.0,
         help="relative variance floor on top of the reference's absolute "
-        "1e-5 (recommended ~1e-3 of the feature variance scale at MXU "
-        "precision; see pipeline.run_pipeline's CMVN note)",
+        "1e-5 (recommended ~1e-3 of the feature variance scale; see "
+        "pipeline.run_pipeline's CMVN note)",
     )
     ap.add_argument("--size-t-width", type=int, default=4)
     ap.add_argument(
@@ -144,14 +144,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--cmvn", choices=["off", "global"], default="off",
         help="train in globally mean/variance-normalized feature space and "
-        "de-normalize the exported models (the MXU-precision lever; EM is "
+        "de-normalize the exported models (the f32-precision lever; EM is "
         "exactly affine-equivariant, cli/train.py --cmvn)",
     )
     ns = ap.parse_args(argv)
 
-    from ..utils import ensure_usable_backend
+    from ..ops.backend import enable_compile_cache
 
-    ensure_usable_backend()
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp

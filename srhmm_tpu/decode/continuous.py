@@ -5,19 +5,21 @@ utterance per word, R2:341-369).  Continuous strings (BASELINE.json config 3)
 need word models composed into a decoding graph and a frame-synchronous
 Viterbi over the composed state space.
 
-TPU-native design:
+Design:
 
-* the composed graph is a dense (S_tot, S_tot) log-transition matrix — for
-  vocabulary word-loops S_tot = W x S_word stays small (hundreds to a few
-  thousand states), and a dense max-plus matmul per frame lives happily on
-  the MXU; emissions come from the stacked vocabulary in one batched GEMM
-  per frame block (T, W, S) -> (T, S_tot);
+* the composed graph is a dense (S_tot, S_tot) log-transition matrix (the
+  reference engine) or its block factorization (BlockGraph: per-word
+  (S, S) blocks plus a (W, W) exit->entry arc matrix, the production
+  engine); emissions come from the stacked vocabulary in one batched GEMM
+  (T, W, S) -> (T, S_tot);
 * decoding is one `lax.scan` carrying (S_tot, K) K-best token scores — the
   N-best semiring: each step does a dense candidate expansion
   (S_from x K) + trans -> top-K per destination state, with backpointers
   stored as flat (from_state * K + k) indices for the backtrace scan;
 * word boundaries are recovered from the backtrace by detecting exit->entry
-  arc crossings (state_to_word changes or re-entry into an entry state).
+  arc crossings (state_to_word changes or re-entry into an entry state);
+* `decode_continuous_batch` vmaps the block engine over a padded batch
+  with length masks, so a batch decodes as one program.
 
 `compose_sequence` builds the left-to-right concatenation of per-unit models
 for a known transcript — the graph used by forced alignment and embedded
@@ -31,13 +33,13 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..models.gmm_hmm import GmmHmm
 from ..ops.emission import log_state_emission
 
 
-@struct.dataclass
+@pytree.dataclass
 class ComposedGraph:
     """A decoding graph over the composed state space of a stacked vocab.
 
@@ -51,7 +53,7 @@ class ComposedGraph:
     entry_states: jax.Array
     exit_states: jax.Array
     log_entry: jax.Array
-    words: tuple = struct.field(pytree_node=False, default=())
+    words: tuple = pytree.static_field(default=())
 
 
 def compose_word_loop(
@@ -207,7 +209,7 @@ def token_passing(
     beam: optional log-domain beam width — tokens more than `beam` below the
     frame's best token are pruned to -inf (exact decode when None; histogram
     pruning for large composed graphs).  Vectorized: pruning is a mask, not
-    a dynamic active list, so the step stays a dense TPU computation.
+    a dynamic active list, so the step stays a dense computation.
     """
     T, S_tot = log_b.shape
     K = n_best
@@ -241,7 +243,7 @@ def token_passing(
     return final, bps
 
 
-@struct.dataclass
+@pytree.dataclass
 class BlockGraph:
     """Block-structured word-loop graph: the dense (S_tot, S_tot) matrix of
     ComposedGraph factors into per-word (W, S, S) within-word blocks plus a
@@ -254,7 +256,7 @@ class BlockGraph:
     log_trans: jax.Array  # (W, S, S) within-word log-transitions
     arc: jax.Array  # (W, W) exit->entry arc log-weights (lm, penalty incl.)
     log_entry: jax.Array  # (W,) initial scores at each word's entry state
-    words: tuple = struct.field(pytree_node=False, default=())
+    words: tuple = pytree.static_field(default=())
     # (W,) within-word EXIT state index per word, or None for the
     # homogeneous S-1 (round 5: HETEROGENEOUS word lengths — words padded
     # to a common stride by pad_stack_models keep their real final state)
@@ -474,10 +476,8 @@ def _words_from_path(
     """Vectorized word-boundary extraction from a composed-state path: a
     boundary is exactly an exit -> entry(0) arc crossing (the rule of
     backtrace_words, without the host loop).  exit_off: exit state index
-    within each word — scalar (default S - 1; smaller when the word
-    stride S includes unreachable filler states, token_passing_fused's
-    padded bigram case) or a (W,) per-word array for heterogeneous word
-    lengths (round 5)."""
+    within each word — scalar (default S - 1) or a (W,) per-word array
+    for heterogeneous word lengths."""
     if exit_off is None:
         exit_off = S - 1
     p = np.asarray(path)
@@ -583,416 +583,41 @@ def decode_continuous(
     return out
 
 
-@jax.jit
-def backtrace_batch_device(bps: jax.Array, states: jax.Array) -> jax.Array:
-    """Batched device-side backtrace for the fused decode kernel's
-    (T, W*S, B) source-row backpointer lattice: follow each lane's chain
-    from its final state.  bps[0] is the identity frame (unused as a
-    pointer); rows at t >= length are identity, so padded frames keep the
-    state constant.  Returns the (T, B) state paths."""
+@partial(jax.jit, static_argnames=("n_best", "n_cand"))
+def _decode_batch_device(vocab, graph, feats, lengths, n_best, n_cand):
+    """Batched word-loop Viterbi as one program: per-utterance composed
+    emissions and block token passing, vmapped over the batch with length
+    masks, then a batched backtrace of each utterance's n_cand best exit
+    tokens.  feats: tuple of per-stream (B, T, D).  Returns (scores
+    (B, n_cand) best first, state paths (T, B, n_cand))."""
+    multi = len(feats) > 1
+    W, S, _ = graph.log_trans.shape
+    K = n_best
 
-    def step(s, bp_t):  # s: (B,) current states; bp_t: (N, B)
-        flat = jnp.take_along_axis(bp_t.T, s[:, None], axis=1)[:, 0]
-        return flat, s
+    def one(fs, length):
+        log_b = composed_emissions(vocab, fs if multi else fs[0])
+        return token_passing_blocks(graph, log_b, length, n_best=K)
 
-    s0, rest = jax.lax.scan(step, states.astype(jnp.int32), bps[1:], reverse=True)
-    return jnp.concatenate([s0[None], rest], axis=0)  # (T, B)
-
-
-def _pad_vocab_states(vocab: GmmHmm, s_pad: int) -> GmmHmm:
-    """Pad every word of a stacked vocabulary to s_pad states.  Filler
-    states are unreachable (no arcs from real states; self-loop 1.0 keeps
-    rows stochastic) with benign unit-weight mixture-0 emissions — the
-    pad_stack_models filler recipe applied uniformly to an
-    already-stacked model.  Used by token_passing_fused to make bigram
-    vocabularies s_word % 8 == 0 for the fused kernel's layout-free
-    (W, S, B) splits; the exit_col operand keeps the REAL exit row
-    (S-1) live."""
-    from ..models import GmmStream
-
-    W, S = vocab.trans.shape[0], vocab.trans.shape[-1]
-    assert s_pad >= S
-    dtype = np.asarray(vocab.trans).dtype
-    trans = np.zeros((W, s_pad, s_pad), dtype)
-    trans[:, :S, :S] = np.asarray(vocab.trans)
-    for s in range(S, s_pad):
-        trans[:, s, s] = 1.0
-    new_streams = []
-    for st in vocab.streams:
-        M, D = st.num_mixtures, st.dim
-        w = np.zeros((W, s_pad, M), dtype)
-        w[:, :S] = np.asarray(st.weights)
-        w[:, S:, 0] = 1.0
-        mu = np.zeros((W, s_pad, M, D), dtype)
-        mu[:, :S] = np.asarray(st.means)
-        det = np.ones((W, s_pad, M), dtype)
-        det[:, :S] = np.asarray(st.det)
-        ld = np.zeros((W, s_pad, M), dtype)
-        ld[:, :S] = np.asarray(st.log_abs_det())
-        if st.cov_type == "full":
-            ic = np.tile(np.eye(D, dtype=dtype), (W, s_pad, M, 1, 1))
-            ic[:, :S] = np.asarray(st.inv_cov)
-        else:
-            ic = np.ones((W, s_pad, M, D), dtype)
-            ic[:, :S] = np.asarray(st.inv_cov)
-        new_streams.append(
-            GmmStream(
-                weights=jnp.asarray(w),
-                means=jnp.asarray(mu),
-                inv_cov=jnp.asarray(ic),
-                det=jnp.asarray(det),
-                cov_type=st.cov_type,
-                log_det=jnp.asarray(ld),
-            )
-        )
-    return GmmHmm(
-        trans=jnp.asarray(trans), streams=tuple(new_streams), word=vocab.word
-    )
-
-
-def token_passing_fused(
-    vocab: GmmHmm,
-    graph: BlockGraph,
-    batch,
-    k_block: int = 4,
-    interpret: bool | None = None,
-):
-    """Batched word-loop Viterbi on the fused lane-major decode kernel
-    (ops/pallas/decode_pallas.py): emissions + block-banded (max, +)
-    recursion + cross-word merge in ONE kernel over all utterances, the
-    backpointer lattice as the only large HBM write.
-
-    batch: UtteranceBatch (B, T, D), or a TUPLE of per-stream batches for
-    MULTI-STREAM vocabularies (round 5: per-stream in-kernel emission
-    sums, the reference's product-of-streams semantics R2:352-358);
-    homogeneous diag/full covariance; n_best=1.  Unigram-decomposable cross arcs (graph.arc rows identical —
-    uniform/unigram LMs) use the O(W*S) reduction; genuine BIGRAM arcs run
-    the in-kernel (W, W) (max, +) contraction (round 4).  Bigram
-    vocabularies whose state count is not a multiple of 8 are
-    AUTO-PADDED with unreachable filler states (round 4: the kernel's
-    exit_col operand keeps the real exit row live), so outputs come back
-    in s_eff = padded state space.  Only a bigram W^2 working set past
-    the VMEM budget (W <= ~256 at B=128) still raises — callers keep the
-    XLA engine.  Returns (final (W*s_eff, B) scores, bps
-    (T, W*s_eff, B) int32, both trimmed to the original B, s_eff) —
-    s_eff == S except for the padded-bigram case; row r encodes
-    word r // s_eff, state r % s_eff."""
-    from ..ops.pallas.decode_pallas import NEG_INF as DNEG
-    from ..ops.pallas.decode_pallas import word_loop_decode_pallas
-    from ..ops.pallas.scoring_pallas import pack_vocab_constants
-
-    batches = batch if isinstance(batch, (tuple, list)) else (batch,)
-    P_s = len(vocab.streams)
-    if len(batches) != P_s:
-        raise ValueError(
-            f"token_passing_fused: {P_s} streams need {P_s} feature batches"
-        )
-    cov_types = {st.cov_type for st in vocab.streams}
-    if cov_types - {"diag", "full"} or len(cov_types) != 1:
-        raise ValueError(
-            "token_passing_fused: homogeneous diag/full-cov streams only"
-        )
-    cov = vocab.streams[0].cov_type
-    if cov == "full":
-        # the d-major z-GEMM's (D*M*nb_pad, B) working sets (~2 live f32
-        # planes per stream) must fit VMEM next to the carries/backpointer
-        # window
-        _N8 = -(-(vocab.trans.shape[0] * vocab.trans.shape[-1]) // 8) * 8
-        zbytes = sum(
-            st.dim * st.num_mixtures * _N8 * 128 * 4 * 2
-            for st in vocab.streams
-        )
-        if zbytes > 48 * 1024 * 1024:
-            raise ValueError(
-                "token_passing_fused: full-cov z-GEMM working set exceeds the VMEM "
-                "budget — use the XLA engine"
-            )
-    arc = np.asarray(graph.arc, np.float64)
-    W, S = vocab.trans.shape[0], vocab.trans.shape[-1]
-    unigram = bool(np.allclose(arc, arc[0:1]))
-    s_eff = S
-    if not unigram:
-        if W * W * 128 * 4 * 2 > 48 * 1024 * 1024:
-            raise ValueError(
-                "token_passing_fused: bigram W^2 working set exceeds the "
-                "VMEM budget — use token_passing_blocks"
-            )
-        if S % 8 != 0:
-            s_eff = -(-S // 8) * 8
-            vocab = _pad_vocab_states(vocab, s_eff)
-    N = W * s_eff
-    lengths = batches[0].lengths
-    B, T = batches[0].features.shape[:2]
-    pad_b = (-B) % 128
-    pad_t = (-T) % k_block
-    featss = [b.features for b in batches]
-    if pad_b or pad_t:
-        featss = [
-            jnp.pad(f, ((0, pad_b), (0, pad_t), (0, 0))) for f in featss
-        ]
-        lengths = jnp.pad(lengths, (0, pad_b))
-
-    packs = [
-        pack_vocab_constants(vocab, jnp.float32, stream=p)
-        for p in range(P_s)
-    ]
-    band = packs[0][5]
-    a = tuple(pk[0] for pk in packs)
-    bias = tuple(pk[2] for pk in packs)
-    diag = packs[0][4]
-    if cov == "full":
-        bias_g = tuple(pk[1] for pk in packs)
-        logw = tuple(pk[3] for pk in packs)
-    else:
-        bias_g = logw = (None,) * P_s
-    if P_s == 1:
-        a, bias, bias_g, logw = a[0], bias[0], bias_g[0], logw[0]
-    entry_rows = np.arange(W) * s_eff
-    if unigram:
-        arc_col = np.full((N, 1), DNEG)
-        arc_col[entry_rows, 0] = arc[0]
-    else:
-        arc_col = np.maximum(arc, DNEG)  # (W, W) bigram matrix
-    entry_col = np.full((N, 1), DNEG)
-    entry_col[entry_rows, 0] = np.asarray(graph.log_entry, np.float64)
+    final, bps = jax.vmap(one)(feats, lengths)  # (B, N, K), (B, T-1, N, K)
+    B = final.shape[0]
     ex_off = (
-        None if graph.exit_states is None else np.asarray(graph.exit_states)
+        jnp.full((W,), S - 1, jnp.int32)
+        if graph.exit_states is None
+        else graph.exit_states.astype(jnp.int32)
     )
-    exit_col = None
-    if s_eff != S or ex_off is not None:
-        off = ex_off if ex_off is not None else np.full(W, S - 1)
-        ec = np.full((N, 1), DNEG)
-        ec[np.arange(W) * s_eff + off, 0] = 0.0
-        exit_col = jnp.asarray(ec, jnp.float32)
+    exit_rows = jnp.arange(W, dtype=jnp.int32) * S + ex_off
+    # candidate c = w*K + k, the order decode_continuous ranks ties in
+    ex_scores = final[:, exit_rows, :].reshape(B, W * K)
+    top, cand = jax.lax.top_k(ex_scores, n_cand)  # (B, R)
+    ids = exit_rows[cand // K] * K + cand % K  # flat token ids state*K + k
 
-    feats_tdb = tuple(
-        jnp.transpose(f.astype(jnp.float32), (1, 2, 0)) for f in featss
-    )
-    if P_s == 1:
-        feats_tdb = feats_tdb[0]
-    final, bps = word_loop_decode_pallas(
-        feats_tdb, a, bias, diag,
-        jnp.asarray(arc_col, jnp.float32),
-        jnp.asarray(entry_col, jnp.float32),
-        lengths, s_word=s_eff, band=band, k_block=k_block,
-        exit_col=exit_col, bias_g=bias_g, logw=logw, interpret=interpret,
-    )
-    return final[:, :B], bps[:, :, :B], s_eff
+    def step(cur, bp_t):  # bp_t: (B, N*K)
+        return jnp.take_along_axis(bp_t, cur, axis=1), cur
 
-
-def _fused_stream_checks(vocab: GmmHmm, batch, name: str):
-    """Shared multi-stream validation for the fused decode wrappers
-    (round 5): returns (batches tuple, cov type).  Homogeneous diag/full
-    streams; one UtteranceBatch per stream; full-cov z-GEMM working sets
-    summed over streams against the VMEM budget."""
-    batches = batch if isinstance(batch, (tuple, list)) else (batch,)
-    P_s = len(vocab.streams)
-    if len(batches) != P_s:
-        raise ValueError(f"{name}: {P_s} streams need {P_s} feature batches")
-    cov_types = {st.cov_type for st in vocab.streams}
-    if cov_types - {"diag", "full"} or len(cov_types) != 1:
-        raise ValueError(f"{name}: homogeneous diag/full-cov streams only")
-    cov = vocab.streams[0].cov_type
-    if cov == "full":
-        _N8 = -(-(vocab.trans.shape[0] * vocab.trans.shape[-1]) // 8) * 8
-        zbytes = sum(
-            st.dim * st.num_mixtures * _N8 * 128 * 4 * 2
-            for st in vocab.streams
-        )
-        if zbytes > 48 * 1024 * 1024:
-            raise ValueError(
-                f"{name}: full-cov z-GEMM working set exceeds the VMEM "
-                "budget — use the XLA engine"
-            )
-    return tuple(batches), cov
-
-
-def _fused_emission_inputs(vocab: GmmHmm, batches, cov, k_block):
-    """Per-stream padded feats + packed constants for the fused decode
-    wrappers; tuples collapse to bare arrays for single-stream vocabs
-    (the kernels' P=1 layout).  Returns (feats_tdb, lengths, B, a, bias,
-    bias_g, logw, diag, band)."""
-    from ..ops.pallas.scoring_pallas import pack_vocab_constants
-
-    lengths = batches[0].lengths
-    B, T = batches[0].features.shape[:2]
-    pad_b = (-B) % 128
-    pad_t = (-T) % k_block
-    featss = [b.features for b in batches]
-    if pad_b or pad_t:
-        featss = [
-            jnp.pad(f, ((0, pad_b), (0, pad_t), (0, 0))) for f in featss
-        ]
-        lengths = jnp.pad(lengths, (0, pad_b))
-    P_s = len(batches)
-    packs = [
-        pack_vocab_constants(vocab, jnp.float32, stream=p)
-        for p in range(P_s)
-    ]
-    band = packs[0][5]
-    diag = packs[0][4]
-    a = tuple(pk[0] for pk in packs)
-    bias = tuple(pk[2] for pk in packs)
-    if cov == "full":
-        bias_g = tuple(pk[1] for pk in packs)
-        logw = tuple(pk[3] for pk in packs)
-    else:
-        bias_g = logw = (None,) * P_s
-    feats_tdb = tuple(
-        jnp.transpose(f.astype(jnp.float32), (1, 2, 0)) for f in featss
-    )
-    if P_s == 1:
-        feats_tdb, a, bias = feats_tdb[0], a[0], bias[0]
-        bias_g, logw = bias_g[0], logw[0]
-    return feats_tdb, lengths, B, a, bias, bias_g, logw, diag, band
-
-
-def token_passing_fused_k2(
-    vocab: GmmHmm,
-    graph: BlockGraph,
-    batch,
-    k_block: int = 4,
-    interpret: bool | None = None,
-):
-    """Batched n_best=2 word-loop Viterbi on the fused K=2 decode kernel
-    (ops/pallas/decode_pallas.py word_loop_decode_k2_pallas) — two token
-    planes per state, in-kernel top-2 merges; unigram-decomposable AND
-    (round 4) genuine bigram arcs, the latter auto-padding state counts
-    to a multiple of 8 as in token_passing_fused.  Returns (final
-    (2, W*s_eff, B) scores, bps (T, 2, W*s_eff, B) int32 flat src*2+k
-    backpointers, trimmed to the original B, s_eff)."""
-    from ..ops.pallas.decode_pallas import NEG_INF as DNEG
-    from ..ops.pallas.decode_pallas import word_loop_decode_k2_pallas
-
-    batches, cov = _fused_stream_checks(vocab, batch, "token_passing_fused_k2")
-    arc = np.asarray(graph.arc, np.float64)
-    W, S = vocab.trans.shape[0], vocab.trans.shape[-1]
-    unigram = bool(np.allclose(arc, arc[0:1]))
-    s_eff = S
-    if not unigram:
-        if W * W * 128 * 4 * 2 > 48 * 1024 * 1024:
-            raise ValueError(
-                "token_passing_fused_k2: bigram W^2 working set exceeds "
-                "the VMEM budget — use token_passing_blocks"
-            )
-        if W * W * 128 * 4 > 4 * 1024 * 1024:
-            # the per-plane (W, W, B) contraction temporaries leave no
-            # VMEM headroom for a double-buffered multi-frame bp window
-            # (W=200 at k_block=4 exceeds the 128 MB capacity by 17 MB;
-            # k_block=1 fits and costs ~nothing — the kernel is
-            # VPU-bound, not grid-overhead-bound, at this size)
-            k_block = 1
-        if S % 8 != 0:
-            s_eff = -(-S // 8) * 8
-            vocab = _pad_vocab_states(vocab, s_eff)
-    N = W * s_eff
-    (feats_tdb, lengths, B, a, bias, bias_g, logw, diag, band) = (
-        _fused_emission_inputs(vocab, batches, cov, k_block)
-    )
-    entry_rows = np.arange(W) * s_eff
-    if unigram:
-        arc_col = np.full((N, 1), DNEG)
-        arc_col[entry_rows, 0] = arc[0]
-    else:
-        arc_col = np.maximum(arc, DNEG)  # (W, W) bigram matrix
-    entry_col = np.full((N, 1), DNEG)
-    entry_col[entry_rows, 0] = np.asarray(graph.log_entry, np.float64)
-    ex_off = (
-        None if graph.exit_states is None else np.asarray(graph.exit_states)
-    )
-    exit_col = None
-    if s_eff != S or ex_off is not None:
-        off = ex_off if ex_off is not None else np.full(W, S - 1)
-        ec = np.full((N, 1), DNEG)
-        ec[np.arange(W) * s_eff + off, 0] = 0.0
-        exit_col = jnp.asarray(ec, jnp.float32)
-
-    final, bps = word_loop_decode_k2_pallas(
-        feats_tdb, a, bias, diag,
-        jnp.asarray(arc_col, jnp.float32),
-        jnp.asarray(entry_col, jnp.float32),
-        lengths, s_word=s_eff, band=band, k_block=k_block,
-        exit_col=exit_col, bias_g=bias_g, logw=logw, interpret=interpret,
-    )
-    return final[:, :, :B], bps[:, :, :, :B], s_eff
-
-
-def token_passing_fused_kn(
-    vocab: GmmHmm,
-    graph: BlockGraph,
-    batch,
-    n_best: int,
-    k_block: int = 2,
-    w_blk: int | None = None,
-    interpret: bool | None = None,
-):
-    """Batched general n_best=K word-loop Viterbi on the fused K-slot
-    kernel (ops/pallas/decode_pallas.py word_loop_decode_kn_pallas) —
-    unigram-decomposable AND genuine bigram arcs, the latter
-    auto-padding state counts.  Round 5: the kernel tiles the bigram
-    take-counter's destination axis (w_blk, auto-chosen from the VMEM
-    budget), so W=200-class bigram K>2 graphs run fused — only graphs
-    needing > 64 destination blocks keep the XLA engine (compile-time
-    unroll cap).  K=2 callers should prefer token_passing_fused_k2.
-    Returns (final (K, W*s_eff, B), bps (T, K, W*s_eff, B) int32 flat
-    src*K + k, trimmed to the original B, s_eff)."""
-    from ..ops.pallas.decode_pallas import NEG_INF as DNEG
-    from ..ops.pallas.decode_pallas import word_loop_decode_kn_pallas
-
-    batches, cov = _fused_stream_checks(vocab, batch, "token_passing_fused_kn")
-    arc = np.asarray(graph.arc, np.float64)
-    W, S = vocab.trans.shape[0], vocab.trans.shape[-1]
-    unigram = bool(np.allclose(arc, arc[0:1]))
-    s_eff = S
-    if not unigram:
-        # round 5: the kernel tiles the destination axis, so the (W, W, B)
-        # take-counter plane no longer gates W directly — only the
-        # destination-block COUNT (statically unrolled per frame) is
-        # capped so Mosaic compile time stays bounded
-        _B128 = -(-batches[0].features.shape[0] // 128) * 128
-        _cap = max(1, (24 * 1024 * 1024) // (16 * W * _B128))
-        _w_blk = max(d for d in range(1, W + 1) if W % d == 0 and d <= _cap)
-        if W // _w_blk > 64:
-            raise ValueError(
-                "token_passing_fused_kn: bigram destination tiling would "
-                "unroll > 64 blocks at this (W, B) — use "
-                "token_passing_blocks"
-            )
-        if S % 8 != 0:
-            s_eff = -(-S // 8) * 8
-            vocab = _pad_vocab_states(vocab, s_eff)
-        k_block = 1
-    N = W * s_eff
-    (feats_tdb, lengths, B, a, bias, bias_g, logw, diag, band) = (
-        _fused_emission_inputs(vocab, batches, cov, k_block)
-    )
-    entry_rows = np.arange(W) * s_eff
-    if unigram:
-        arc_col = np.full((N, 1), DNEG)
-        arc_col[entry_rows, 0] = arc[0]
-    else:
-        arc_col = np.maximum(arc, DNEG)  # (W, W) bigram matrix
-    entry_col = np.full((N, 1), DNEG)
-    entry_col[entry_rows, 0] = np.asarray(graph.log_entry, np.float64)
-    ex_off = (
-        None if graph.exit_states is None else np.asarray(graph.exit_states)
-    )
-    exit_col = None
-    if s_eff != S or ex_off is not None:
-        off = ex_off if ex_off is not None else np.full(W, S - 1)
-        ec = np.full((N, 1), DNEG)
-        ec[np.arange(W) * s_eff + off, 0] = 0.0
-        exit_col = jnp.asarray(ec, jnp.float32)
-
-    final, bps = word_loop_decode_kn_pallas(
-        feats_tdb, a, bias, diag,
-        jnp.asarray(arc_col, jnp.float32),
-        jnp.asarray(entry_col, jnp.float32),
-        lengths, s_word=s_eff, band=band, n_best=n_best, k_block=k_block,
-        exit_col=exit_col, bias_g=bias_g, logw=logw, w_blk=w_blk,
-        interpret=interpret,
-    )
-    return final[:, :, :B], bps[:, :, :, :B], s_eff
+    bp_tb = jnp.swapaxes(bps.reshape(B, bps.shape[1], -1), 0, 1)
+    first, rest = jax.lax.scan(step, ids, bp_tb, reverse=True)
+    paths = jnp.concatenate([first[None], rest], axis=0) // K
+    return top, paths
 
 
 def decode_continuous_batch(
@@ -1003,180 +628,32 @@ def decode_continuous_batch(
     lm_scale: float = 1.0,
     word_insertion_penalty: float = 0.0,
     lm_initial: np.ndarray | None = None,
-    k_block: int = 4,
     n_best: int = 1,
     final_states: np.ndarray | None = None,
-    interpret: bool | None = None,
 ):
-    """Batched end-to-end continuous decode: ALL utterances of a padded
-    batch decode in one fused kernel pass (token_passing_fused — unigram
-    and, since round 4, bigram LMs) plus one batched device backtrace.
-    Falls back to the per-utterance XLA block engine when the fused
-    kernel is ineligible (non-diag streams, bigram with s_word % 8 != 0,
-    or W^2 past the VMEM budget).
+    """Batched end-to-end continuous decode: every utterance of a padded
+    batch decodes in ONE program — composed emissions and the block token
+    passing engine (token_passing_blocks) vmapped over the batch with
+    length masks, and one batched device backtrace.  Same results as
+    decode_continuous run on each utterance alone (unigram or bigram LM,
+    any n_best, heterogeneous word lengths via final_states).
 
-    n_best=1 (default) returns a list over utterances of
-    (score, word_ids, word_spans); n_best=2 rides the fused K=2 kernel
-    (token_passing_fused_k2; unigram AND bigram arcs since round 4) and
-    n_best>=3 the general K-slot kernel (token_passing_fused_kn;
-    unigram and, for W within the VMEM gate, bigram arcs — oversized
-    bigram K>2 graphs fall back to the per-utterance engine);
-    both return a list over utterances of UP TO n_best tuples, best
-    first.
+    batch: UtteranceBatch (B, T, D), or a tuple of per-stream
+    UtteranceBatch objects for MULTI-STREAM vocabularies (shared lengths,
+    one feature set per stream, the reference's R2:331-339 contract;
+    per-stream emissions sum in log space).
 
-    MULTI-STREAM vocabularies (round 5): pass `batch` as a tuple of
-    per-stream UtteranceBatch objects (shared lengths, one feature set
-    per stream, the reference's R2:331-339 contract) — decoding runs the
-    per-utterance XLA block engine with per-stream composed emissions
-    summed in log space (R2:352-358 product-of-streams lifted to the
-    word loop)."""
-    if isinstance(batch, (tuple, list)) and len(vocab.streams) > 1:
-        if n_best >= 2:
-            # round 5: multi-stream K-best rides the fused K-plane kernels
-            # (per-stream in-kernel emission sums); ineligible graphs fall
-            # back to the per-utterance engine inside _decode_batch_kn
-            return _decode_batch_kn(
-                vocab, tuple(batch), lm_logprobs, exit_logprob, lm_scale,
-                word_insertion_penalty, lm_initial, k_block, n_best,
-                interpret,
-            )
-        if n_best == 1:
-            # round 5: multi-stream rides the fused K=1 kernel (per-stream
-            # in-kernel emission sums); ineligible graphs fall through to
-            # the per-utterance engine below
-            try:
-                graph = compose_word_loop_blocks(
-                    vocab, lm_logprobs=lm_logprobs,
-                    exit_logprob=exit_logprob, lm_scale=lm_scale,
-                    word_insertion_penalty=word_insertion_penalty,
-                    lm_initial=lm_initial,
-                )
-                final, bps, s_eff = token_passing_fused(
-                    vocab, graph, tuple(batch), k_block=k_block,
-                    interpret=interpret,
-                )
-                W = vocab.trans.shape[0]
-                S = vocab.trans.shape[-1]
-                fin = np.asarray(final)
-                exit_rows = np.arange(W) * s_eff + (S - 1)
-                best_states = exit_rows[np.argmax(fin[exit_rows], axis=0)]
-                paths = np.asarray(
-                    backtrace_batch_device(
-                        bps, jnp.asarray(best_states, jnp.int32)
-                    )
-                )
-                lengths_np = np.asarray(batch[0].lengths)
-                out = []
-                for b in range(fin.shape[1]):
-                    L = int(lengths_np[b])
-                    if L <= 0:
-                        out.append((float("-inf"), [], []))
-                        continue
-                    words, spans = _words_from_path(
-                        paths[:L, b], s_eff, exit_off=S - 1
-                    )
-                    out.append((float(fin[best_states[b], b]), words, spans))
-                return out
-            except ValueError:
-                pass
-        lengths_np = np.asarray(batch[0].lengths)
-        out = []
-        for b in range(batch[0].features.shape[0]):
-            L = int(lengths_np[b])
-            if L <= 0:
-                out.append((float("-inf"), [], []) if n_best == 1 else [])
-                continue
-            hyp = decode_continuous(
-                vocab,
-                tuple(bb.features[b, :L] for bb in batch),
-                lm_logprobs=lm_logprobs,
-                exit_logprob=exit_logprob,
-                lm_scale=lm_scale,
-                word_insertion_penalty=word_insertion_penalty,
-                lm_initial=lm_initial,
-                n_best=n_best,
-            )
-            out.append(hyp[0] if n_best == 1 else hyp)
-        return out
-    if n_best >= 2:
-        return _decode_batch_kn(
-            vocab, batch, lm_logprobs, exit_logprob, lm_scale,
-            word_insertion_penalty, lm_initial, k_block, n_best, interpret,
-            final_states=final_states,
-        )
-    if n_best != 1:
+    Returns a list over utterances: (score, word_ids, word_spans) for
+    n_best=1, else a list of up to n_best such tuples, best first (distinct
+    word sequences, as decode_continuous dedupes them)."""
+    if n_best < 1:
         raise ValueError("decode_continuous_batch: n_best must be >= 1")
-    graph = compose_word_loop_blocks(
-        vocab,
-        lm_logprobs=lm_logprobs,
-        exit_logprob=exit_logprob,
-        lm_scale=lm_scale,
-        word_insertion_penalty=word_insertion_penalty,
-        lm_initial=lm_initial,
-        final_states=final_states,
-    )
-    W, S = vocab.trans.shape[0], vocab.trans.shape[-1]
-    try:
-        final, bps, s_eff = token_passing_fused(
-            vocab, graph, batch, k_block=k_block, interpret=interpret
+    batches = batch if isinstance(batch, (tuple, list)) else (batch,)
+    if len(batches) != len(vocab.streams) and len(batches) != 1:
+        raise ValueError(
+            f"{len(vocab.streams)} streams need {len(vocab.streams)} feature "
+            f"batches, got {len(batches)}"
         )
-    except ValueError:
-        lengths_np = np.asarray(batch.lengths)
-        out = []
-        for b in range(batch.features.shape[0]):
-            L = int(lengths_np[b])
-            if L <= 0:
-                out.append((float("-inf"), [], []))
-                continue
-            frames = batch.features[b, :L]
-            hyp = decode_continuous(
-                vocab,
-                frames,
-                lm_logprobs=lm_logprobs,
-                exit_logprob=exit_logprob,
-                lm_scale=lm_scale,
-                word_insertion_penalty=word_insertion_penalty,
-                lm_initial=lm_initial,
-                n_best=1,
-                final_states=final_states,
-            )[0]
-            out.append(hyp)
-        return out
-    fin = np.asarray(final)  # (W*s_eff, B)
-    ex_off = (
-        np.full(W, S - 1)
-        if final_states is None
-        else np.asarray(final_states)
-    )
-    exit_rows = np.arange(W) * s_eff + ex_off
-    best_states = exit_rows[np.argmax(fin[exit_rows], axis=0)]  # (B,)
-    paths = np.asarray(
-        backtrace_batch_device(bps, jnp.asarray(best_states, jnp.int32))
-    )  # (T, B)
-    lengths = np.asarray(batch.lengths)
-    out = []
-    for b in range(fin.shape[1]):
-        L = int(lengths[b])
-        if L <= 0:
-            out.append((float("-inf"), [], []))
-            continue
-        words, spans = _words_from_path(paths[:L, b], s_eff, exit_off=ex_off)
-        out.append((float(fin[best_states[b], b]), words, spans))
-    return out
-
-
-def _decode_batch_kn(
-    vocab, batch, lm_logprobs, exit_logprob, lm_scale,
-    word_insertion_penalty, lm_initial, k_block, n_best, interpret,
-    final_states=None,
-):
-    """n_best=K batched decode on the fused K-plane kernels: the flat
-    n*K+k token-id space makes backtrace_batch_device directly
-    reusable — transpose the (T, K, N, B) backpointers to (T, N, K, B)
-    and flatten, so pointer entries and row indices share the
-    id = n*K+k encoding.  K=2 rides token_passing_fused_k2; K>=3 the
-    general K-slot kernel."""
-    K = n_best
     graph = compose_word_loop_blocks(
         vocab,
         lm_logprobs=lm_logprobs,
@@ -1187,101 +664,30 @@ def _decode_batch_kn(
         final_states=final_states,
     )
     W, S = vocab.trans.shape[0], vocab.trans.shape[-1]
-    try:
-        if K == 2:
-            try:
-                final, bps, s_eff = token_passing_fused_k2(
-                    vocab, graph, batch, k_block=k_block, interpret=interpret
-                )  # (2, N, B), (T, 2, N, B) with N = W * s_eff
-            except ValueError:
-                # round 5: oversized-W bigram K=2 rides the K-slot kernel
-                # (its take counter is destination-tiled) before giving up
-                final, bps, s_eff = token_passing_fused_kn(
-                    vocab, graph, batch, n_best=2,
-                    k_block=max(1, min(k_block, 4)), interpret=interpret,
-                )
-        else:
-            final, bps, s_eff = token_passing_fused_kn(
-                vocab, graph, batch, n_best=K,
-                k_block=max(1, min(k_block, 8 // K)), interpret=interpret,
-            )
-    except ValueError:  # ineligible graph: per-utterance XLA engine
-        batches = batch if isinstance(batch, (tuple, list)) else (batch,)
-        lengths_np = np.asarray(batches[0].lengths)
-        out = []
-        for b in range(batches[0].features.shape[0]):
-            L = int(lengths_np[b])
-            if L <= 0:
-                out.append([])
-                continue
-            frames = tuple(bb.features[b, :L] for bb in batches)
-            out.append(
-                decode_continuous(
-                    vocab,
-                    frames if len(batches) > 1 else frames[0],
-                    lm_logprobs=lm_logprobs,
-                    exit_logprob=exit_logprob,
-                    lm_scale=lm_scale,
-                    word_insertion_penalty=word_insertion_penalty,
-                    lm_initial=lm_initial,
-                    n_best=K,
-                    final_states=final_states,
-                )
-            )
-        return out
-    N = W * s_eff
-    T = bps.shape[0]
-    B = final.shape[-1]
-    # flat id space: id = n*K + k
-    scores_flat = jnp.transpose(final, (1, 0, 2)).reshape(K * N, B)
-    bp_flat = jnp.transpose(bps, (0, 2, 1, 3)).reshape(T, K * N, B)
-    row = jnp.arange(K * N)[:, None]
-    _W = N // s_eff
-    _ex = (
-        np.full(_W, S - 1) if final_states is None else np.asarray(final_states)
+    # n_best=1 takes the best exit token; K-best dedupes word sequences, so
+    # every exit token is a candidate (decode_continuous's rule)
+    n_cand = 1 if n_best == 1 else W * n_best
+    top, paths = _decode_batch_device(
+        vocab, graph, tuple(b.features for b in batches),
+        batches[0].lengths, n_best, n_cand,
     )
-    _ex_j = jnp.asarray(_ex, jnp.int32)
-    is_exit = ((row // K) % s_eff) == _ex_j[(row // K) // s_eff]
-    masked = jnp.where(is_exit, scores_flat, -jnp.inf)
-    # the engine dedupes hypotheses by WORD SEQUENCE, so the two returned
-    # hypotheses may come from deeper than the top-2 exit tokens: rank the
-    # top-R candidates, backtrace them all in one batched scan, dedupe on
-    # the host (R = all 2W exit tokens, matching decode_continuous exactly)
-    R = K * W
-    ranked = jnp.argsort(-masked, axis=0)[:R]  # (R, B) candidate ids
-
-    def _bt_step(s, bp_t):  # s: (R, B); bp_t: (K*N, B)
-        nxt = jnp.take_along_axis(bp_t, s, axis=0)
-        return nxt, s
-
-    s0, rest = jax.lax.scan(
-        _bt_step, ranked.astype(jnp.int32), bp_flat[1:], reverse=True
-    )
-    paths = np.asarray(
-        jnp.concatenate([s0[None], rest], axis=0)
-    )  # (T, R, B) token-id paths
-    sc = np.asarray(scores_flat)
-    ranked_np = np.asarray(ranked)
-    b0 = batch[0] if isinstance(batch, (tuple, list)) else batch
-    lengths = np.asarray(b0.lengths)
+    top, paths = np.asarray(top), np.asarray(paths)
+    ex_off = np.full(W, S - 1) if final_states is None else np.asarray(final_states)
     out = []
-    for b in range(b0.features.shape[0]):
-        L = int(lengths[b])
-        hyps = []
-        seen = set()
-        if L > 0:
-            for r in range(R):
-                cid = int(ranked_np[r, b])
-                score = float(sc[cid, b])
-                if not np.isfinite(score):
-                    break
-                states = paths[:L, r, b] // K  # token id -> composed state
-                words, spans = _words_from_path(states, s_eff, exit_off=_ex)
-                key = tuple(words)
-                if key not in seen:
-                    seen.add(key)
-                    hyps.append((score, words, spans))
-                if len(hyps) >= K:
-                    break
-        out.append(hyps)
+    for b, L in enumerate(np.asarray(batches[0].lengths)):
+        hyps, seen = [], set()
+        for r in range(n_cand if L > 0 else 0):
+            score = float(top[b, r])
+            if not np.isfinite(score):
+                break
+            words, spans = _words_from_path(paths[:L, b, r], S, exit_off=ex_off)
+            if tuple(words) not in seen:
+                seen.add(tuple(words))
+                hyps.append((score, words, spans))
+            if len(hyps) >= n_best:
+                break
+        if n_best == 1:
+            out.append(hyps[0] if hyps else (float("-inf"), [], []))
+        else:
+            out.append(hyps)
     return out

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..models.gmm_hmm import GmmHmm
+from ..ops import backend
 from ..ops.emission import log_state_emission, prob_emission_parity
 from ..ops.forward_backward import (
     log_forward,
@@ -101,48 +102,68 @@ def score_batch_log(
     )(tuple(b.features for b in batches), batches[0].lengths)
 
 
+@partial(jax.jit, static_argnames=("mode", "interpret"))
+def score_batch_lattice(
+    vocab: GmmHmm,
+    batch,
+    mode: str = TOTAL,
+    final_states: jax.Array | None = None,
+    interpret: bool = False,
+) -> jax.Array:
+    """score_batch_log with the forward recursion on the Triton lattice
+    kernel (ops/lattice_triton.py): emissions for every (utterance, word)
+    pair as one XLA computation, then ONE kernel launch runs the forward
+    recursion over all B*W lanes, each lane with its word's transitions.
+    Same (B, W) result as score_batch_log."""
+    from ..ops.lattice_triton import forward_lattice
+
+    batches = batch if isinstance(batch, tuple) else (batch,)
+    lengths = batches[0].lengths
+
+    def word_log_b(fs, word_model):  # (T, S) for one utterance and word
+        log_b = None
+        for frames, stream in zip(fs, word_model.streams):
+            lb = log_state_emission(frames, (stream,))
+            log_b = lb if log_b is None else log_b + lb
+        return log_b
+
+    log_b = jax.vmap(
+        lambda fs: jax.vmap(lambda m: word_log_b(fs, m))(vocab)
+    )(tuple(b.features for b in batches))  # (B, W, T, S)
+    B, W, T, S = log_b.shape
+    lanes = jnp.transpose(log_b, (2, 3, 0, 1)).reshape(T, S, B * W)
+    log_trans = jnp.broadcast_to(
+        vocab.log_trans().astype(log_b.dtype)[None], (B, W, S, S)
+    )
+    log_trans = jnp.transpose(log_trans, (2, 3, 0, 1)).reshape(S, S, B * W)
+    la = forward_lattice(
+        lanes, log_trans, jnp.repeat(lengths, W), final_only=True,
+        interpret=interpret,
+    ).reshape(S, B, W)
+    if mode == TOTAL:
+        return jax.nn.logsumexp(la, axis=0)
+    if final_states is None:
+        return la[S - 1]
+    return jnp.take_along_axis(la, final_states[None, None, :], axis=0)[0]
+
+
 def score_batch(
     vocab: GmmHmm,
     batch,
     mode: str = TOTAL,
     final_states: jax.Array | None = None,
-    impl: str | None = None,
 ) -> jax.Array:
-    """Batch scoring dispatcher: the fused lane-major Pallas scoring kernel
-    (ops/pallas/scoring_pallas.py — one kernel for ALL utterances x ALL
-    words, features read once) on TPU for f32 vocabularies, diagonal or
-    full covariance (full cov rides the Cholesky z-GEMM — the reference's
-    committed R1 fixture models score on the fused path), incl.
-    HETEROGENEOUS padded vocabularies (pad_stack_models final_states ride
-    a per-word gather on the kernel output) and MULTI-STREAM vocabularies
-    (pass `batch` as a per-stream tuple; in-kernel per-stream logsumexp
-    sum, the reference's product-of-streams scoring R2:352-358);
-    score_batch_log otherwise.  impl: None=auto, "fused"/"xla" to force."""
+    """Batch scoring: every utterance against every word, (B, W) scores.
+    The forward recursion runs on the implementation ops/backend.py picks
+    for the platform: the Triton lattice kernel (score_batch_lattice) on a
+    GPU for single-device inputs, the vmapped XLA scan (score_batch_log)
+    otherwise.  `batch` may be a per-stream tuple for multi-stream
+    vocabularies (the reference's product-of-streams scoring,
+    R2:352-358)."""
     batches = batch if isinstance(batch, tuple) else (batch,)
-    eligible = (
-        len(vocab.streams) == len(batches)
-        and len({st.cov_type for st in vocab.streams}) == 1
-        and vocab.streams[0].cov_type in ("diag", "full")
-        and all(
-            getattr(b.features, "dtype", None) == jnp.float32 for b in batches
-        )
-        and jax.default_backend() == "tpu"
-    )
-    if eligible:
-        try:
-            if any(
-                len(b.features.sharding.device_set) > 1 for b in batches
-            ):
-                eligible = False
-        except Exception:
-            eligible = False
-    use_fused = eligible if impl is None else (impl == "fused")
-    if use_fused:
-        from ..ops.pallas.scoring_pallas import score_batch_fused_lane
-
-        return score_batch_fused_lane(
-            vocab, batch, mode=mode, final_states=final_states,
-            interpret=False,
+    if backend.lattice_impl(*(b.features for b in batches)) == backend.TRITON:
+        return score_batch_lattice(
+            vocab, batch, mode=mode, final_states=final_states
         )
     return score_batch_log(vocab, batch, mode=mode, final_states=final_states)
 

@@ -1,21 +1,21 @@
-"""MFCC / log-mel filterbank frontend — GEMM-native, TPU-first.
+"""MFCC / log-mel filterbank frontend — GEMM-native.
 
 The reference consumes precomputed 9-dim spectral-profile features and ships
 no feature extraction at all (SURVEY §2.6: `.perfil` holds band energies);
 this module supplies the missing frontend named in BASELINE.json's north star
 ("MFCC/filterbank feature extraction as a ... STFT+DCT kernel").
 
-TPU-native design: every stage is a matrix multiply against a precomputed
-constant, so the whole pipeline is a chain of GEMMs the MXU executes directly
-(the GEMM-native NDFT formulation — cf. the MelT paper, PAPERS.md):
+Design: every stage is a matrix multiply against a precomputed constant, so
+the whole pipeline is a chain of GEMMs (the GEMM-native NDFT formulation —
+cf. the MelT paper, PAPERS.md), run at the float32 precision policy of
+ops/backend.py:
 
     frames (B, F, W)  @ [window * DFT cos/sin] (W, K)   -> real/imag spectra
     power  (B, F, K)  @ mel filterbank         (K, n_mels)
     log-mel (B, F, n_mels) @ DCT-II            (n_mels, n_mfcc)
 
-No FFT is used: for speech window sizes (W = 400..1024) a dense DFT matmul at
-bf16/f32 on the MXU beats a radix FFT's scalar shuffle structure, fuses with
-windowing, and needs no power-of-2 padding.  Deltas are a depthwise
+No FFT is used: for speech window sizes (W = 400..1024) a dense DFT matmul
+fuses with windowing and needs no power-of-2 padding.  Deltas are a depthwise
 convolution expressed as a banded matmul over time.
 """
 
@@ -28,6 +28,12 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..ops.backend import PRECISION
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=PRECISION)
 
 
 @dataclass(frozen=True)
@@ -114,12 +120,12 @@ def mfcc(x: jax.Array, cfg: FrontendConfig = FrontendConfig()) -> jax.Array:
         )
     frames = frame_signal(x, cfg)  # (..., F, W)
     cos_m, sin_m = dft_matrices(cfg)
-    re = frames @ jnp.asarray(cos_m, dtype)  # MXU GEMM
-    im = frames @ jnp.asarray(sin_m, dtype)
+    re = _mm(frames, jnp.asarray(cos_m, dtype))
+    im = _mm(frames, jnp.asarray(sin_m, dtype))
     power = re * re + im * im  # (..., F, K)
-    melspec = power @ jnp.asarray(mel_filterbank(cfg), dtype)
+    melspec = _mm(power, jnp.asarray(mel_filterbank(cfg), dtype))
     logmel = jnp.log(jnp.maximum(melspec, cfg.log_floor))
-    out = logmel @ jnp.asarray(dct_matrix(cfg), dtype)
+    out = _mm(logmel, jnp.asarray(dct_matrix(cfg), dtype))
     if cfg.include_energy:
         energy = jnp.log(jnp.maximum(jnp.sum(power, -1), cfg.log_floor))
         out = out.at[..., 0].set(energy)
@@ -136,10 +142,10 @@ def log_mel(x: jax.Array, cfg: FrontendConfig = FrontendConfig()) -> jax.Array:
         )
     frames = frame_signal(x, cfg)
     cos_m, sin_m = dft_matrices(cfg)
-    re = frames @ jnp.asarray(cos_m, dtype)
-    im = frames @ jnp.asarray(sin_m, dtype)
+    re = _mm(frames, jnp.asarray(cos_m, dtype))
+    im = _mm(frames, jnp.asarray(sin_m, dtype))
     power = re * re + im * im
-    melspec = power @ jnp.asarray(mel_filterbank(cfg), dtype)
+    melspec = _mm(power, jnp.asarray(mel_filterbank(cfg), dtype))
     return jnp.log(jnp.maximum(melspec, cfg.log_floor))
 
 
@@ -161,8 +167,8 @@ def add_deltas(feats: jax.Array, order_window: int = 2) -> jax.Array:
     """(..., T, D) -> (..., T, 3D): static + delta + delta-delta."""
     T = feats.shape[-2]
     dm = jnp.asarray(delta_matrix(T, order_window), feats.dtype)
-    d1 = jnp.einsum("ts,...sd->...td", dm, feats)
-    d2 = jnp.einsum("ts,...sd->...td", dm, d1)
+    d1 = jnp.einsum("ts,...sd->...td", dm, feats, precision=PRECISION)
+    d2 = jnp.einsum("ts,...sd->...td", dm, d1, precision=PRECISION)
     return jnp.concatenate([feats, d1, d2], axis=-1)
 
 

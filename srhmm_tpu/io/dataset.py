@@ -1,7 +1,7 @@
-"""Padded utterance batching for TPU.
+"""Padded utterance batching for the device.
 
 The reference streams one utterance at a time, re-reading each .perfil from
-disk twice per EM iteration (T1:259, T1:287).  The TPU-native design loads a
+disk twice per EM iteration (T1:259, T1:287).  This design loads a
 training list once into a padded (B, T_max, D) device array with a lengths
 vector; every downstream op (emission GEMMs, forward/backward scans, EM
 statistics) is masked by `lengths` so padding contributes nothing.
@@ -19,10 +19,10 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class UtteranceBatch:
     """features: (B, T_max, D); lengths: (B,) int32."""
 

@@ -3,7 +3,7 @@
 The reference blocks on stdio reads INSIDE its EM loop — every .perfil is
 re-read from disk twice per utterance per iteration
 (train/source/hmm-full-fs/hmm_continuous_full_fs.c:258-269, re-reads at
-:259/:287).  The TPU replacement (SURVEY §2.4 threads/async-I/O row) is a
+:259/:287).  The replacement here (SURVEY §2.4 threads/async-I/O row) is a
 classic double buffer: a background thread produces the NEXT shard —
 running the batched loader (io/dataset.load_batch -> the native C++
 worker-pool loader) and/or the host->device transfer — while the main

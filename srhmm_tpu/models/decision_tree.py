@@ -6,7 +6,7 @@ systems (models/tying.py, BASELINE config 5) need a (unit, state) -> senone
 map; this module CONSTRUCTS that map from data with the classic top-down
 likelihood-gain tree clustering of Young/Odell/Woodland (HTK's tree-based
 state tying), host-side in NumPy — a modeling step that runs once between
-a monophone pass and tied-triphone EM, not a TPU kernel.
+a monophone pass and tied-triphone EM, not a device kernel.
 
 Method: one tree per (center phone, state position).  All context variants
 of that state start pooled at the root; nodes are split greedily by yes/no

@@ -3,7 +3,7 @@
 The reference stores a model as nested C structs (`struct mixture` /
 `struct state`, /root/reference/train/source/hmm-full-fs/hmm_continuous_full_fs.c:55-66)
 with one linked-list node per vocabulary word in the recognizer
-(recognition-fs/recognition_continuous_fs.c:124-139).  The TPU-native design
+(recognition-fs/recognition_continuous_fs.c:124-139).  This design
 instead keeps every parameter as a dense array with explicit state / mixture /
 coefficient axes, so that
 
@@ -25,7 +25,7 @@ from typing import Any, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 FULL = "full"
 DIAG = "diag"
@@ -37,7 +37,7 @@ BETA_INF_CLAMP = 1e200  # calc_beta overflow clamp (T1:1540)
 ZERO_DET_THRESHOLD = 1e-20  # treat_zero_det trigger (T1:2242)
 
 
-@struct.dataclass
+@pytree.dataclass
 class GmmStream:
     """Gaussian-mixture emission parameters for one feature stream.
 
@@ -53,8 +53,8 @@ class GmmStream:
     means: jax.Array
     inv_cov: jax.Array
     det: jax.Array
-    cov_type: str = struct.field(pytree_node=False, default=FULL)
-    # log |det|, the TPU fast-path representation: raw determinants of real
+    cov_type: str = pytree.static_field(default=FULL)
+    # log |det|, the fast-path representation: raw determinants of real
     # speech covariances (1e20..1e40 in the fixtures) overflow float32, so
     # low-precision compute paths must normalize in log space.  None -> derive
     # from `det` on the fly (float64 storage path).
@@ -92,7 +92,7 @@ class GmmStream:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class GmmHmm:
     """A left-to-right continuous-density HMM for one word (or a stacked vocab).
 
@@ -104,7 +104,7 @@ class GmmHmm:
 
     trans: jax.Array
     streams: tuple[GmmStream, ...]
-    word: Any = struct.field(pytree_node=False, default="")
+    word: Any = pytree.static_field(default="")
 
     @property
     def num_states(self) -> int:
@@ -217,7 +217,7 @@ def pad_stack_models(models: Sequence[GmmHmm]) -> tuple[GmmHmm, jax.Array]:
     states_number / mixture_number read from each .hmm
     (recognition-fs/recognition_continuous_fs.c:201-245, reading_model
     :595-715), so a vocabulary can freely mix e.g. 5-state and 8-state
-    models.  The dense TPU layout gets the same capability by padding every
+    models.  The dense layout gets the same capability by padding every
     model to the max (S, M) per stream:
 
       * filler STATES are unreachable: no arcs from real states reach them

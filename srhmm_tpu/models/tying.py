@@ -3,7 +3,7 @@
 BASELINE.json config 5 is a tied-state triphone system: many context-
 dependent HMMs whose emission states SHARE a much smaller inventory of
 Gaussian-mixture distributions (senones).  The reference has nothing like
-this (one private GMM per state); the TPU-native design keeps a single
+this (one private GMM per state); this design keeps a single
 senone GmmStream of shape (N, M, ...) plus an integer map
 (unit, state) -> senone, so
 
@@ -25,12 +25,12 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from .gmm_hmm import GmmHmm, GmmStream
 
 
-@struct.dataclass
+@pytree.dataclass
 class TiedHmmSet:
     """senones: (N, M, ...) shared emission states; trans: (P, S, S) per-unit
     transitions; state_map: (P, S) int32 senone ids."""
@@ -38,7 +38,7 @@ class TiedHmmSet:
     senones: GmmStream
     trans: jax.Array
     state_map: jax.Array
-    unit_names: Any = struct.field(pytree_node=False, default=())
+    unit_names: Any = pytree.static_field(default=())
 
     @property
     def num_units(self) -> int:

@@ -1,6 +1,6 @@
 // Native batched .perfil loader.
 //
-// TPU-native replacement for the reference's per-utterance blocking stdio
+// Replacement for the reference's per-utterance blocking stdio
 // reads inside hot loops (reading_coef, hmm_continuous_full_fs.c:515-567,
 // re-read twice per utterance per EM iteration at :259/:287): parse a whole
 // training list into one padded (B, T_max, D) host buffer with a worker

@@ -2,9 +2,10 @@
 
 Two paths:
 
-* **log path** (TPU fast path): log-space Gaussian mixture log-likelihoods.
+* **log path** (fast path): log-space Gaussian mixture log-likelihoods.
   For diagonal covariance the per-frame/state/mixture log-pdf is expressed as
-  one matmul over a lifted feature map [x, x^2] — all FLOPs land on the MXU:
+  one matmul over a lifted feature map [x, x^2], run at the float32
+  precision policy of ops/backend.py (the lift cancels badly in TF32):
 
       log N(x; mu, s^2) = -1/2 (D log 2pi + sum log s^2)
                           - 1/2 sum x^2 k + sum x (mu k) - 1/2 sum mu^2 k
@@ -12,8 +13,7 @@ Two paths:
 
   The x-dependent part is  [x, x^2] @ W  with W = [[mu*k], [-k/2]] stacked
   over (S*M), i.e. a (T, 2D) x (2D, S*M) GEMM.  Full covariance uses a
-  quadratic-form einsum (D is small; XLA maps it onto the MXU as batched
-  GEMMs).
+  quadratic-form einsum (D is small; XLA runs it as batched GEMMs).
 
 * **parity path**: replicates the reference's probability-domain computation
   bit-comparably in float64 — `calc_gaus` (full: hmm-full-fs/
@@ -35,9 +35,10 @@ import jax
 import jax.numpy as jnp
 
 from ..models.gmm_hmm import DIAG, FULL, GAUS_INF_CLAMP, GmmStream
+from .backend import PRECISION
 
 # ---------------------------------------------------------------------------
-# log path (TPU fast path)
+# log path (fast path)
 # ---------------------------------------------------------------------------
 
 
@@ -68,13 +69,16 @@ def log_gauss(frames: jax.Array, stream: GmmStream) -> jax.Array:
         w = jnp.concatenate([w_lin, w_quad], axis=0)  # (2D, SM)
         bias = -0.5 * jnp.sum(mu * mu * k, axis=-1).reshape(S * M)  # (SM,)
         feats = jnp.concatenate([frames, frames * frames], axis=-1)  # (T, 2D)
-        q = jnp.dot(feats, w, preferred_element_type=dtype) + bias
+        q = jnp.dot(
+            feats, w, preferred_element_type=dtype, precision=PRECISION
+        ) + bias
         out = q.reshape(frames.shape[0], S, M) + log_norm
         return jnp.where(degenerate, -jnp.inf, out)
     elif stream.cov_type == FULL:
         dif = frames[:, None, None, :] - mu  # (T, S, M, D)
         quad = jnp.einsum(
-            "tsmd,smde,tsme->tsm", dif, k, dif, preferred_element_type=dtype
+            "tsmd,smde,tsme->tsm", dif, k, dif, preferred_element_type=dtype,
+            precision=PRECISION,
         )
         out = -0.5 * quad + log_norm
         # The reference clamps overflowing full-cov densities to 1e20
@@ -154,9 +158,11 @@ def prob_gauss_parity(frames: jax.Array, stream: GmmStream) -> jax.Array:
 
     dif = frames[:, None, None, :] - mu  # (T, S, M, D)
     if stream.cov_type == FULL:
-        quad = jnp.einsum("tsmd,smde,tsme->tsm", dif, k, dif)
+        quad = jnp.einsum(
+            "tsmd,smde,tsme->tsm", dif, k, dif, precision=PRECISION
+        )
     else:
-        quad = jnp.einsum("tsmd,smd->tsm", dif * dif, k)
+        quad = jnp.einsum("tsmd,smd->tsm", dif * dif, k, precision=PRECISION)
     gaus = jnp.exp(-0.5 * quad) / (norm * jnp.sqrt(jnp.abs(det)))
     if stream.cov_type == FULL:
         gaus = jnp.where(jnp.isinf(gaus), GAUS_INF_CLAMP, gaus)

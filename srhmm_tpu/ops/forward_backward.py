@@ -2,7 +2,7 @@
 
 Two formulations:
 
-* **log path** (TPU fast path): log-space `lax.scan` recursions — no scaling
+* **log path** (fast path): log-space `lax.scan` recursions — no scaling
   factors, numerically unbounded sequence length, mask-aware for padded
   batches.  Score equivalences with the reference's scaled recursion
   (T1:1414-1473, R1/R2 `calc_probability`):

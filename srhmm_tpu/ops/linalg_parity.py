@@ -10,7 +10,7 @@ trained models match the committed fixtures to float64 reporting precision:
   calc_det           product of a diagonal (T1:2020-2032)
 
 These run on the host: the M-step touches S*M matrices of size D^2 (tiny next
-to the E-step), and the EM driver is host-side orchestration anyway.  The TPU
+to the E-step), and the EM driver is host-side orchestration anyway.  The
 fast path uses batched jnp Cholesky instead (train/m_step.py).
 """
 

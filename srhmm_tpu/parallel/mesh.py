@@ -1,13 +1,13 @@
 """Device-mesh parallelism for EM training and batch scoring.
 
 The reference is strictly single-threaded, single-process C (SURVEY §2.4); the
-TPU-native replacements are:
+replacements are:
 
 * **Data parallelism** — utterance batches sharded over a `data` mesh axis.
   EM sufficient statistics are linear in the data, so the E-step's sum over
   the batch axis IS the psum: under jit, with inputs placed via NamedSharding
   and the model replicated, GSPMD partitions the per-utterance work and
-  inserts the ICI all-reduce for the stats reduction automatically.
+  inserts the all-reduce for the stats reduction automatically.
 * **Model (mixture) parallelism** — the Gaussian-mixture axis M of each
   stream sharded over a `model` mesh axis (BASELINE.json config 5:
   mixture-sharded multi-host EM).  Per-state logsumexp over M and the
@@ -19,7 +19,9 @@ TPU-native replacements are:
 Design note: we deliberately use sharding annotations + GSPMD propagation
 rather than hand-written shard_map psums — XLA already emits the minimal
 collective schedule for linear statistics, and the same code runs unsharded
-on one chip.
+on one device.  (The explicit shard_map trainers — train/em.py
+em_train_scan_sharded and the embedded/tied forms — exist because the GPU
+lattice kernel is a pallas_call, which GSPMD cannot partition.)
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def replicate(tree, mesh: Mesh):
 def em_step_sharded(model: GmmHmm, batch: UtteranceBatch, var_floor: float = 0.0):
     """One EM iteration over sharded inputs.  Identical code to
     train.em.em_step — the sharding of `model` and `batch` drives GSPMD; the
-    stats sum over the batch axis lowers to an ICI all-reduce."""
+    stats sum over the batch axis lowers to an all-reduce."""
     from ..train.em import em_step
 
     return em_step(model, batch, var_floor)

@@ -2,8 +2,8 @@
 
 The reference caps utterances at MAX_TIME frames in fixed single-core arrays
 (hmm-full-fs/hmm_continuous_full_fs.c:43) — its only "long sequence" device is
-the per-frame scaling factor.  The TPU-native design (SURVEY §2.4 SP row, §5
-long-context plan) instead splits the **time axis across chips**:
+the per-frame scaling factor.  This design (SURVEY §2.4 SP row, §5
+long-context plan) instead splits the **time axis across devices**:
 
 The forward recursion is a chain of per-frame (S, S) operators under the
 (logsumexp, +) semiring:
@@ -11,13 +11,13 @@ The forward recursion is a chain of per-frame (S, S) operators under the
     alpha_t = alpha_{t-1} ∘ M_t,   M_t[i, j] = log_trans[i, j] + log_b[t, j]
 
 so a block of frames composes into one block operator, and blocks on
-different chips can be reduced independently.  Each chip:
+different devices can be reduced independently.  Each device:
 
   1. reduces its local frame block to one (S, S) block operator — a local
      `lax.scan` of log-matmuls (the O(T/D · S^3) price of the associative
-     formulation, amortized across chips);
-  2. joins block operators across chips with a Hillis-Steele **exclusive
-     prefix scan**: ceil(log2(D)) rounds of `jax.lax.ppermute` over ICI,
+     formulation, amortized across devices);
+  2. joins block operators across devices with a Hillis-Steele **exclusive
+     prefix scan**: ceil(log2(D)) rounds of `jax.lax.ppermute`,
      exchanging one (S, S) boundary operator per round — this is the
      "boundary state exchange" of the SP design;
   3. replays its own block from the incoming boundary state at O(S^2)/frame
@@ -26,8 +26,8 @@ different chips can be reduced independently.  Each chip:
 Padded frames (t >= length) contribute identity operators, so the lattice
 semantics match ops/forward_backward.py exactly: forward rows past the end
 repeat the last valid row; backward rows hold the final-state initialization.
-Everything here is shape-static and jit-compiled via `shard_map`; the
-collectives ride ICI when the `time` axis is laid out within a slice.
+Everything here is shape-static and jit-compiled via `shard_map`; XLA
+emits the collectives (NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from ..ops.backend import PRECISION
 
 shard_map = jax.shard_map
 
@@ -334,21 +336,25 @@ def _e_step_shard(model, feats_loc, lengths, *, n_dev: int, axis: str):
         gm = gamma[..., None] * post  # (B, Tl, S, M)
         w = lax.psum(gm.sum((0, 1)), axis)
         x = lax.psum(
-            jnp.einsum("btsm,btd->smd", gm, sf, preferred_element_type=dtype),
+            jnp.einsum(
+                "btsm,btd->smd", gm, sf, preferred_element_type=dtype,
+                precision=PRECISION,
+            ),
             axis,
         )
         if stream.cov_type == FULL:
             xx = lax.psum(
                 jnp.einsum(
                     "btsm,btd,bte->smde", gm, sf, sf,
-                    preferred_element_type=dtype,
+                    preferred_element_type=dtype, precision=PRECISION,
                 ),
                 axis,
             )
         else:
             xx = lax.psum(
                 jnp.einsum(
-                    "btsm,btd->smd", gm, sf * sf, preferred_element_type=dtype
+                    "btsm,btd->smd", gm, sf * sf, preferred_element_type=dtype,
+                    precision=PRECISION,
                 ),
                 axis,
             )

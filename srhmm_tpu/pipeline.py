@@ -7,19 +7,19 @@ input -> algorithm -> report in one invocation).  This module is the modern
 equivalent for the full framework: one call chains
 
   synthetic multi-speaker audio
-    -> fused MFCC frontend            (features/pallas_mfcc.py on TPU)
+    -> MFCC frontend                  (features/frontend.py)
     -> LBG flat-start monophones      (init/lbg.py)
-    -> monophone embedded EM          (train/embedded.py, fused on TPU)
+    -> monophone embedded EM          (train/embedded.py)
     -> decision-tree state clustering (models/decision_tree.py)
-    -> tied-state (senone) fused EM   (train/tied.py)
+    -> tied-state (senone) EM         (train/tied.py)
     -> materialize lexicon words      (models.concat_models over triphones)
-    -> bigram n-best fused decode     (decode/continuous.py)
+    -> bigram n-best batched decode   (decode/continuous.py)
     -> WER                            (eval/metrics.py)
 
 exercising every inter-module seam (frontend->trainer dtype, tree->tied
 hand-off, tied->decode materialization, decoder->WER) that the per-module
 tests lock only in isolation.  CLI: `python -m srhmm_tpu.cli.pipeline`;
-integration test: tests/test_pipeline.py; bench: the config-3 WER rows.
+integration test: tests/test_pipeline.py; on the GPU: chip_smoke.py.
 
 Synthetic speech: each phone is a fixed triple of formant-like sinusoids
 (distinct spectral envelope per phone); words are fixed-length phone
@@ -182,29 +182,33 @@ def synthesize_dataset(
 # features
 
 
-def mfcc_features(
-    waves: Sequence[np.ndarray], cfg: FrontendConfig, fused: bool | None = None
-) -> list:
-    """MFCC per waveform: the fused Pallas STFT+mel+DCT kernel on TPU
-    (features/pallas_mfcc.py), the XLA frontend elsewhere.  Returns float32
-    (F, n_mfcc) arrays — the frontend->trainer dtype seam."""
-    import jax
+def mfcc_features(waves: Sequence[np.ndarray], cfg: FrontendConfig) -> list:
+    """MFCC per waveform (features/frontend.py).  Returns float32
+    (F, n_mfcc) arrays — the frontend->trainer dtype seam.
+
+    Waveforms at least one frame long run as ONE zero-padded batch (one
+    compilation instead of one per length); each keeps its own frame count.
+    A frame reads only samples inside its window, so the kept frames equal
+    the per-waveform transform's."""
     import jax.numpy as jnp
 
-    if fused is None:
-        fused = jax.default_backend() == "tpu"
-    out = []
-    if fused:
-        from .features.pallas_mfcc import mfcc_pallas
+    from .features.frontend import mfcc
 
-        for x in waves:
-            out.append(np.asarray(mfcc_pallas(jnp.asarray(x, jnp.float32), cfg)))
-    else:
-        from .features.frontend import mfcc
-
-        for x in waves:
-            out.append(
-                np.asarray(mfcc(jnp.asarray(x, jnp.float32), cfg), np.float32)
+    lens = [len(x) for x in waves]
+    n_frames = [1 + max(0, n - cfg.frame_length) // cfg.frame_shift for n in lens]
+    long = [i for i, n in enumerate(lens) if n >= cfg.frame_length]
+    out: list = [None] * len(waves)
+    if long:
+        pad = np.zeros((len(long), max(lens[i] for i in long)), np.float32)
+        for row, i in enumerate(long):
+            pad[row, : lens[i]] = waves[i]
+        feats = np.asarray(mfcc(jnp.asarray(pad), cfg), np.float32)
+        for row, i in enumerate(long):
+            out[i] = feats[row, : n_frames[i]]
+    for i, n in enumerate(lens):
+        if n < cfg.frame_length:
+            out[i] = np.asarray(
+                mfcc(jnp.asarray(waves[i], jnp.float32), cfg), np.float32
             )
     return out
 
@@ -302,6 +306,7 @@ def _bucketed_embedded_stats(models, utts, transcripts, pad_multiple=32):
     from .io.dataset import round_up
     from .train.embedded import batch_stats
 
+    stats_fn = jax.jit(batch_stats)
     buckets: dict = {}
     for i, (u, tr) in enumerate(zip(utts, transcripts)):
         buckets.setdefault((round_up(len(u), pad_multiple), len(tr)), []).append(i)
@@ -315,7 +320,7 @@ def _bucketed_embedded_stats(models, utts, transcripts, pad_multiple=32):
             f[row, : len(utts[i])] = utts[i]
             ln[row] = len(utts[i])
             trs[row] = transcripts[i]
-        st = batch_stats(models, jnp.asarray(trs), jnp.asarray(f), jnp.asarray(ln))
+        st = stats_fn(models, jnp.asarray(trs), jnp.asarray(f), jnp.asarray(ln))
         agg = st if agg is None else jax.tree.map(jnp.add, agg, st)
     return agg
 
@@ -376,19 +381,20 @@ def run_pipeline(
     """Run the whole framework once, as one system (see module docstring).
 
     mesh: optional data-parallel Mesh — both EM stages then ride the
-    shard_map(lax.scan) multi-chip trainers.  Returns aggregate WER over
+    shard_map(lax.scan) multi-device trainers.  Returns aggregate WER over
     the held-out test set (near-0 expected on clean synthetic speech).
 
     cmvn + var_floor are the production numerics levers (on by default):
     global mean/variance normalization of the MFCC space plus a relative
     variance floor.  Without them, noisy conditions collapse some mixture
     variances toward the reference's absolute 1e-5 floor (T1:38), and at
-    inv_cov ~ 1e5 the lifted-GEMM emission cancels catastrophically at
-    MXU default precision (hardware-measured: per-frame log-likelihood
-    errors of ~1e3-1e5 nats — training "log probs" of +1e8 and 83% WER at
-    10 dB SNR, where the CPU run of the identical chain decodes at 0%).
-    In CMVN space variances sit near 1, the floor is meaningful, and the
-    GEMM stays conditioned — the same reasoning as cli/train.py --cmvn."""
+    inv_cov ~ 1e5 the lifted-GEMM emission cancels catastrophically unless
+    it runs at full f32 precision (a reduced-precision accelerator run of
+    this chain once trained to "log probs" of +1e8 and 83% WER at 10 dB,
+    where the CPU decoded at 0%; ops/backend.PRECISION now pins every such
+    GEMM).  In CMVN space variances sit near 1, the floor is meaningful,
+    and the GEMM stays conditioned — the same reasoning as
+    cli/train.py --cmvn."""
     import jax.numpy as jnp
 
     from .decode.continuous import decode_continuous_batch
@@ -469,7 +475,7 @@ def run_pipeline(
 
     # materialize the tied system into lexicon word models for decode;
     # variable-length lexicons stack heterogeneous word HMMs
-    # (pad_stack_models) and decode with per-word final states (round 5)
+    # (pad_stack_models) and decode with per-word final states
     unit_models = tied_res.model.materialize()
     word_models = [
         concat_models(unit_models, word_unit_ids[w], word=lexicon[w][0])
@@ -495,7 +501,7 @@ def run_pipeline(
     )
     hyps = []
     for h in hyps_raw:
-        best = h[0] if n_best >= 2 else h  # kn returns a list of tuples
+        best = h[0] if n_best >= 2 else h  # K-best returns a list of tuples
         hyps.append(list(best[1]))
     tick("decode")
 

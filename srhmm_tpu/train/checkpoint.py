@@ -8,7 +8,8 @@ Here every EM iteration can be checkpointed.  Two formats:
 
 * **reference-compatible `.hmm`** (io/hmm_format.py) — interchange with the
   C programs, final-model export;
-* **native checkpoint** — the full model pytree via flax msgpack plus a JSON
+* **native checkpoint** — the model pytree's flattened leaves as a numpy
+  `.npz`, restored against a template of the same structure, plus a JSON
   sidecar holding the EM driver state (iteration, last log prob, convergence
   bookkeeping), so a restarted job resumes mid-training with identical
   subsequent iterations.  EM is restartable at iteration granularity because
@@ -29,7 +30,6 @@ from pathlib import Path
 
 import jax
 import numpy as np
-from flax import serialization
 
 from ..models.gmm_hmm import GmmHmm
 
@@ -49,7 +49,7 @@ class CheckpointManager:
 
     def _paths(self, iteration: int) -> tuple[Path, Path]:
         return (
-            self.dir / f"ckpt_{iteration:06d}.msgpack",
+            self.dir / f"ckpt_{iteration:06d}.npz",
             self.dir / f"ckpt_{iteration:06d}.json",
         )
 
@@ -61,7 +61,6 @@ class CheckpointManager:
         if not self.should_write():
             return
         mp, js = self._paths(state.iteration)
-        payload = serialization.to_bytes(model)
         meta = {
             "iteration": state.iteration,
             "old_log_prob": state.old_log_prob,
@@ -74,7 +73,8 @@ class CheckpointManager:
             ],
         }
         tmp = mp.with_suffix(".tmp")
-        tmp.write_bytes(payload)
+        with open(tmp, "wb") as f:
+            np.savez(f, *(np.asarray(x) for x in jax.tree.leaves(model)))
         os.replace(tmp, mp)  # atomic: .json presence marks completeness
         tmp_j = js.with_suffix(".jtmp")
         tmp_j.write_text(json.dumps(meta))
@@ -84,7 +84,7 @@ class CheckpointManager:
     def _gc(self):
         done = sorted(self.dir.glob("ckpt_*.json"))
         for js in done[: -self.keep]:
-            js.with_suffix(".msgpack").unlink(missing_ok=True)
+            js.with_suffix(".npz").unlink(missing_ok=True)
             js.unlink(missing_ok=True)
 
     def latest(self, template: GmmHmm) -> tuple[GmmHmm, EmDriverState] | None:
@@ -92,17 +92,32 @@ class CheckpointManager:
         structure (shapes/cov types must match the run config)."""
         done = sorted(self.dir.glob("ckpt_*.json"))
         for js in reversed(done):
-            mp = js.with_suffix(".msgpack")
+            mp = js.with_suffix(".npz")
             if not mp.exists():
                 continue
             meta = json.loads(js.read_text())
-            model = serialization.from_bytes(template, mp.read_bytes())
+            model = _restore(template, mp)
             return model, EmDriverState(
                 iteration=meta["iteration"],
                 old_log_prob=meta["old_log_prob"],
                 history=meta["history"],
             )
         return None
+
+
+def _restore(template, path: Path):
+    """Leaves from an .npz written by save, unflattened into template's
+    tree structure (numpy arrays, dtypes as saved)."""
+    want, treedef = jax.tree.flatten(template)
+    with np.load(path) as z:
+        leaves = [z[f"arr_{i}"] for i in range(len(z.files))]
+    if len(leaves) != len(want) or any(
+        a.shape != np.shape(b) for a, b in zip(leaves, want)
+    ):
+        raise ValueError(
+            f"checkpoint {path} does not match the template's structure"
+        )
+    return jax.tree.unflatten(treedef, leaves)
 
 
 def train_fast_resumable(

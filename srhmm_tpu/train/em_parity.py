@@ -7,7 +7,7 @@ accumulation, GMM sufficient statistics about the *pre-update* means
 semantics (|old-new|/|old| vs 1e-3 with old_probab initialized to 1.0, the
 final pass NOT applying an update).
 
-The TPU fast path (train/em.py) reformulates all of this in log space over
+The fast path (train/em.py) reformulates all of this in log space over
 padded batches with psum-able sufficient statistics; this module is the
 oracle it is validated against, and the path the parity tests run.
 """

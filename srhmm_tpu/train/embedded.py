@@ -8,7 +8,7 @@ its transcript's unit models (decode/continuous.py compose_sequence), the
 forward-backward runs over the composed state space, and the per-position
 statistics scatter-add back onto the shared unit models.
 
-TPU-native design:
+Design:
 * unit emissions/posteriors are computed ONCE per unit (P, T, S[, M]) — a
   batched GEMM over the whole unit inventory — then gathered per transcript
   position; repeated units cost nothing extra;
@@ -24,14 +24,13 @@ TPU-native design:
 
 from __future__ import annotations
 
-import math
 from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..models.gmm_hmm import DIAG, FULL, GmmHmm
+from ..models.gmm_hmm import GmmHmm
 from ..ops.emission import log_mixture_posteriors
 from ..ops.forward_backward import log_backward_full, log_forward_full
 from .em import StreamStats, SuffStats, gmm_moment_stats, m_step
@@ -196,445 +195,35 @@ def batch_stats(
     )
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def fused_positional_stats(
-    ids: jax.Array,
-    bank: jax.Array,
-    bias2: jax.Array | None,
-    pos_logt: jax.Array,
-    feats: jax.Array,
-    lengths: jax.Array,
-    n_mix: int,
-    cov_full: bool = False,
-    k_block: int = 16,
-    group: int = 8,
-    gamma_lattice: bool = True,
-    interpret: bool | None = None,
-):
-    """Shared fused composed-lattice E-step core (embedded AND tied paths).
-
-    ids (B, L*S) int32 flat-position -> bank-row map (unit_id*S + s for
-    embedded, senone id for tied); bank / bias2: VMEM-resident parameter
-    bank from pack_position_bank_diag / pack_position_bank_full (mixtures
-    padded to Mp, a multiple of 8); pos_logt (B, L, S, S) per-position
-    LEFT-RIGHT unit log-transitions; feats (B, T, D); lengths (B,).
-
-    Runs the four composed_pallas.py kernels (emission, forward,
-    backward+stats, moments).  The per-utterance emission constants are
-    assembled IN-KERNEL from the bank via scalar-prefetched ids — the
-    round-3 XLA `a_pos` gather (3 HBM passes over a ~150x-inflated bank
-    copy, ~half the config-4 step) no longer exists — and the GMM moment
-    statistics come back already scatter-accumulated in BANK-ROW space
-    (the moments kernel RMWs its VMEM-resident accumulator; the round-3
-    (B, L, S, M, 2D+1) per-utterance moment tensor and its XLA
-    segment-sum are gone).  Returns:
-      mom      (NB, Mp, Cm)  bank-row rows of [sum gm*x | sum gm*x^2 or
-               sum gm*vec(xx^T) | sum gm], Cm = 2D+1 diag, D+D^2+1 full;
-               slice [:, :n_mix] for the real mixtures
-      den_mix  (B, L, S)
-      den_trans(B, L, S)
-      num_trans(B, L, S, S)        incl. chain flow folded into exit loops
-      safe_z   (B,), vmask (B,)
-    """
-    from ..ops.pallas.composed_pallas import (
-        NEG_INF,
-        bank_emission_pallas,
-        bank_moments_pallas,
-        composed_backward_stats_pallas,
-        composed_forward_pallas,
-    )
-
-    multi = isinstance(bank, tuple)
-    banks = bank if multi else (bank,)
-    bias2s = bias2 if multi else (bias2,)
-    P_s = len(banks)
-    B, L, S, _ = pos_logt.shape
-    T = feats.shape[1]
-    D = feats.shape[-1]
-    mixes = n_mix if multi else (n_mix,)
-    mps = tuple(
-        (bk.shape[1] // D) if cov_full else bk.shape[1] for bk in banks
-    )
-    LS = L * S
-    band = max(S - 1, 1)  # chain arc is flattened distance 1
-    dtype = jnp.float32
-
-    B_pad = _round_up(B, 128)
-    T_pad = _round_up(_round_up(T, k_block), 128)
-    LS_pad = _round_up(LS, 8)
-    feats = jnp.pad(
-        feats.astype(dtype), ((0, B_pad - B), (0, T_pad - T), (0, 0))
-    )
-    lengths = jnp.pad(lengths, (0, B_pad - B))
-    ids = jnp.pad(ids.astype(jnp.int32), ((0, B_pad - B), (0, 0)))
-    pos_logt = jnp.pad(
-        pos_logt.astype(dtype), ((0, B_pad - B), (0, 0), (0, 0), (0, 0))
-    )
-
-    # --- emissions (lane axis = time; lattice-layout transpose fused) -----
-    feats_bdt = jnp.transpose(feats, (0, 2, 1))  # (B, D, T)
-    feats_tup = (feats_bdt,) * P_s  # streams share the feature matrix
-    log_b_tsb = bank_emission_pallas(
-        ids, banks, bias2s, feats_tup, n_mix_p=mps, ls_pad=LS_pad,
-        full=cov_full, interpret=interpret,
-    )  # (T, LS_pad, B) — forward/backward-ready, no XLA transpose
-
-    # --- per-lane composed banded transition diagonals ---------------------
-    s_idx = jnp.arange(S)
-    diags = []
-    for d in range(band + 1):
-        within = jnp.where(
-            (s_idx + d < S)[None, None, :],
-            pos_logt[:, :, s_idx, jnp.minimum(s_idx + d, S - 1)],
-            -jnp.inf,
-        )  # (B, L, S)
-        if d == 1 and L > 1:
-            # chain arc: exit of unit l -> entry of unit l+1 carries the
-            # exit self-loop mass (_composed_log_trans)
-            chain = pos_logt[:, :, S - 1, S - 1]  # (B, L)
-            within = within.at[:, :-1, S - 1].set(chain[:, :-1])
-        diags.append(within.reshape(B_pad, LS))
-    diag_row = jnp.stack(diags, 0)  # (band+1, B, LS): row form lt[i, i+d]
-    diag_row = jnp.pad(
-        jnp.transpose(diag_row, (0, 2, 1)),
-        ((0, 0), (0, LS_pad - LS), (0, 0)),
-        constant_values=-jnp.inf,
-    )  # (band+1, LS_pad, B)
-    neg = jnp.float32(NEG_INF)
-    diag_row = jnp.maximum(diag_row, neg)
-    # column form: diag_col[d, j] = lt[j-d, j] = diag_row[d, j-d]
-    diag_col = jnp.stack(
-        [
-            jnp.pad(
-                diag_row[d, : LS_pad - d], ((d, 0), (0, 0)), constant_values=NEG_INF
-            )
-            for d in range(band + 1)
-        ],
-        0,
-    )
-
-    # --- lattices (lane axis = batch) --------------------------------------
-    la = composed_forward_pallas(
-        log_b_tsb, diag_col, lengths, k_block=k_block, band=band,
-        interpret=interpret,
-    )
-    log_z = la[-1, LS - 1, :]  # (B,) — rows repeat past each length
-    valid = jnp.isfinite(log_z) & (log_z > NEG_INF / 2) & (lengths > 0)
-    vmask = valid.astype(dtype)
-    safe_z = jnp.where(valid, log_z, 0.0)
-
-    gamma_tsb, xi_diag, den_trans_sb, den_mix_sb = composed_backward_stats_pallas(
-        log_b_tsb, la, diag_row, lengths, safe_z, vmask,
-        final=LS - 1, k_block=k_block, band=band, interpret=interpret,
-    )
-
-    # --- moments (lane axis = time; in-kernel bank-row scatter) -----------
-    if gamma_lattice:
-        # round 5: the moments kernel consumes K_B's (T, LSp, B) gamma
-        # layout directly (per-grid-step VMEM transpose) — the XLA gamma
-        # transpose, the last HBM round-trip between the kernels, no
-        # longer exists
-        from ..ops.pallas.composed_pallas import bank_moments_lattice_pallas
-
-        mom = bank_moments_lattice_pallas(
-            ids, banks, bias2s, feats_tup, gamma_tsb,
-            n_mix_p=mps, full=cov_full, interpret=interpret,
-        )  # per-stream (NB, Mp, Cm) bank-row accumulators
-    else:  # the round-4 path (kept for A/B measurement and fallback)
-        gamma_bst = jnp.transpose(gamma_tsb[:, :LS, :], (2, 1, 0))  # (B, LS, T)
-        mom = bank_moments_pallas(
-            ids, banks, bias2s, feats_tup, gamma_bst,
-            n_mix_p=mps, full=cov_full, group=group, interpret=interpret,
-        )
-    if not multi:
-        mom = mom[0]
-    den_mix = jnp.transpose(den_mix_sb[:LS], (1, 0)).reshape(B_pad, L, S)[:B]
-    den_trans = jnp.transpose(den_trans_sb[:LS], (1, 0)).reshape(B_pad, L, S)[:B]
-
-    xi_bls = jnp.transpose(xi_diag[:, :LS, :], (2, 0, 1)).reshape(
-        B_pad, band + 1, L, S
-    )
-    nt = jnp.zeros((B_pad, L, S, S), dtype)
-    for d in range(band + 1):
-        s_in = jnp.arange(S - d)
-        nt = nt.at[:, :, s_in, s_in + d].add(xi_bls[:, d, :, : S - d])
-    if L > 1:
-        # the d=1 diagonal at each unit's exit row is the CHAIN arc flow;
-        # reference semantics fold it into the exit self-loop
-        # (train/embedded.batch_stats; R-chain in _composed_log_trans)
-        nt = nt.at[:, :-1, S - 1, S - 1].add(xi_bls[:, 1, :-1, S - 1])
-    return mom, den_mix, den_trans, nt[:B], safe_z[:B], vmask[:B]
-
-
-def pack_position_bank(means, inv_cov, weights, log_abs_det, D):
-    """Diag-Gaussian lifted-GEMM constants for a parameter bank with an
-    arbitrary leading index shape: means/inv_cov (..., M, D), weights /
-    log_abs_det (..., M).  Returns (a (..., M, 2D), bias (..., M)) such
-    that  a . [x; x^2] + bias  is the weighted per-mixture log-likelihood
-    (pack_lane_constants semantics, ops/pallas/fused_em_pallas.py)."""
-    mu = means.astype(jnp.float64)
-    kk = inv_cov.astype(jnp.float64)
-    w = weights.astype(jnp.float64)
-    from ..ops.pallas.composed_pallas import NEG_INF
-
-    a = jnp.concatenate([mu * kk, -0.5 * kk], axis=-1)
-    bias = (
-        -0.5 * jnp.sum(mu * mu * kk, axis=-1)
-        + jnp.log(jnp.maximum(w, 1e-300))
-        - 0.5 * (D * math.log(2.0 * math.pi) + log_abs_det.astype(jnp.float64))
-    )
-    return a, jnp.maximum(bias, NEG_INF)
-
-
-def _pad_mix(M: int) -> int:
-    """Mixture rows padded to the f32 sublane tile so every in-kernel bank
-    copy / reshape / mixture reduction is tile-aligned."""
-    return _round_up(max(M, 1), 8)
-
-
-def pack_position_bank_diag(means, inv_cov, weights, log_abs_det, D):
-    """VMEM-resident diag bank for the in-kernel-gather composed kernels:
-    (NB, Mp, 2D+1) f32 rows [mu*k | -k/2 | bias+logw], leading dims of the
-    inputs flattened to NB, mixtures padded to Mp (multiple of 8) with
-    bias = NEG_INF rows (inert in logsumexp and posteriors)."""
-    from ..ops.pallas.composed_pallas import NEG_INF
-
-    a, bias = pack_position_bank(means, inv_cov, weights, log_abs_det, D)
-    M = a.shape[-2]
-    bank = jnp.concatenate([a, bias[..., None]], axis=-1)  # (..., M, 2D+1)
-    bank = bank.reshape(-1, M, 2 * D + 1)
-    Mp = _pad_mix(M)
-    if Mp > M:
-        pad = jnp.full((bank.shape[0], Mp - M, 2 * D + 1), 0.0, bank.dtype)
-        pad = pad.at[..., -1].set(NEG_INF)
-        bank = jnp.concatenate([bank, pad], axis=1)
-    return bank.astype(jnp.float32)
-
-
-def pack_position_bank_full(means, inv_cov, weights, log_abs_det, D):
-    """VMEM-resident FULL-covariance bank (Cholesky z-GEMM lift,
-    fused_em_pallas.pack_lane_constants semantics): means (..., M, D),
-    inv_cov (..., M, D, D), weights / log_abs_det (..., M).
-
-    Returns (bank (NB, D*Mp, D+1), bias2 (NB, Mp, 2)): bank rows d-major
-    per entry — row d*Mp + m = [row d of L_m^T | -(L_m^T mu_m)_d] with
-    K_m = L_m L_m^T — so  z = bank[i] . [x; 1]  gives the Cholesky factors
-    and  quad_m = sum_d z_{d,m}^2  the quadratic form with NO cancellation;
-    bias2 = [normalizer-bias, logw] kept separate so the 1e20 density clamp
-    (calc_gaus T1:1880-1883) lands between them.  Degenerate mixtures
-    (non-finite log|det| -> NEG_INF bias; finite det, non-PD inverse ->
-    LOG_GAUS_CLAMP bias) get zeroed rows, as in pack_lane_constants."""
-    from ..ops.pallas.composed_pallas import NEG_INF
-    from ..ops.pallas.fused_em_pallas import LOG_GAUS_CLAMP
-
-    mu = means.astype(jnp.float64)  # (..., M, D)
-    kk = inv_cov.astype(jnp.float64)  # (..., M, D, D)
-    w = weights.astype(jnp.float64)
-    ld = log_abs_det.astype(jnp.float64)
-    M = mu.shape[-2]
-    norm = -0.5 * (D * math.log(2.0 * math.pi) + ld)  # (..., M)
-    logw = jnp.log(jnp.maximum(w, 1e-300))
-    chol = jnp.linalg.cholesky(kk)  # (..., M, D, D) lower, K = L L^T
-    zmu = jnp.einsum("...ed,...e->...d", chol, mu)  # L^T mu per mixture
-    det_ok = jnp.isfinite(norm)
-    ok = jnp.all(jnp.isfinite(chol), axis=(-2, -1)) & det_ok
-    chol = jnp.where(ok[..., None, None], chol, 0.0)
-    zmu = jnp.where(ok[..., None], zmu, 0.0)
-    bias = jnp.where(ok, norm, jnp.where(det_ok, LOG_GAUS_CLAMP, NEG_INF))
-
-    # rows[..., d, m, :] = [chol[..., m, :, d] (row d of L^T) | -zmu[..., m, d]]
-    g = jnp.moveaxis(jnp.swapaxes(chol, -1, -2), -2, -3)  # (..., D, M, D)
-    c = -jnp.moveaxis(zmu, -1, -2)  # (..., D, M)
-    rows = jnp.concatenate([g, c[..., None]], axis=-1)  # (..., D, M, D+1)
-    Mp = _pad_mix(M)
-    rows = rows.reshape(-1, D, M, D + 1)
-    if Mp > M:
-        rows = jnp.concatenate(
-            [rows, jnp.zeros((rows.shape[0], D, Mp - M, D + 1), rows.dtype)],
-            axis=2,
-        )
-    bank = rows.reshape(-1, D * Mp, D + 1)
-
-    bias2 = jnp.stack(
-        [jnp.maximum(bias, NEG_INF), jnp.maximum(logw, NEG_INF)], axis=-1
-    ).reshape(-1, M, 2)  # (NB, M, 2)
-    if Mp > M:
-        pad = jnp.zeros((bias2.shape[0], Mp - M, 2), bias2.dtype)
-        pad = pad.at[..., 0].set(NEG_INF)
-        bias2 = jnp.concatenate([bias2, pad], axis=1)
-    return bank.astype(jnp.float32), bias2.astype(jnp.float32)
-
-
-def bank_vmem_bytes(n_entries: int, M: int, D: int, full: bool) -> int:
-    """VMEM footprint of the resident bank PLUS the moments kernel's
-    bank-row-space accumulator (lane-padded f32 tiles) — the fused
-    composed path requires both to fit alongside the working blocks."""
-    Mp = _pad_mix(M)
-    rows = (D * Mp) if full else Mp
-    cols = (D + 1) if full else (2 * D + 1)
-    bank = n_entries * _round_up(rows, 8) * _round_up(cols, 128) * 4
-    if full:
-        bank += n_entries * Mp * 128 * 4  # bias2
-    cm = (D + D * D + 1) if full else (2 * D + 1)
-    mom_acc = n_entries * Mp * _round_up(cm, 128) * 4
-    return bank + mom_acc
-
-
-# conservative resident-bank budget: VMEM on this part is ~128 MB and the
-# kernels' working blocks + double-buffered IO need headroom
-_BANK_VMEM_LIMIT = 48 * 1024 * 1024
-
-
-def fused_bank_eligible(n_entries: int, M: int, D: int, full: bool) -> bool:
-    """Whether the in-kernel-gather composed path can hold the bank
-    VMEM-resident (callers fall back to the XLA path otherwise — only
-    enormous full-covariance inventories exceed it)."""
-    return bank_vmem_bytes(n_entries, M, D, full) <= _BANK_VMEM_LIMIT
-
-
-def batch_stats_fused(
-    models: GmmHmm,
-    transcripts: jax.Array,
-    feats: jax.Array,
-    lengths: jax.Array,
-    k_block: int = 16,
-    group: int = 8,
-    interpret: bool | None = None,
-) -> SuffStats:
-    """Batch embedded E-step on the fused composed-lattice Pallas kernels
-    (ops/pallas/composed_pallas.py) — one or MORE streams (homogeneous
-    cov type: the reference's product-of-streams emission, T1:1437-1441),
-    diagonal OR full covariance, LEFT-RIGHT (upper-triangular) unit
-    transitions.
-
-    Equivalent to `batch_stats` (test-locked); none of the XLA path's
-    (B, T, L, S, M) per-mixture tensors ever reach HBM, and the per-unit
-    parameter banks stay VMEM-resident (positions resolved in-kernel from
-    the scalar-prefetched transcript — no per-utterance constant gather;
-    GMM moments scatter in-kernel into unit-state rows).  The composed
-    chain is banded with band <= S-1 (see composed_pallas.py), so the
-    per-lane lattice recursions run over S rolled diagonals.
-    """
-    cov = models.streams[0].cov_type
-    if cov not in (DIAG, FULL) or any(
-        s.cov_type != cov for s in models.streams
-    ):
-        raise ValueError(
-            "batch_stats_fused: homogeneous diag/full streams required"
-        )
-    cov_full = cov == FULL
-    multi = len(models.streams) > 1
-    P = models.trans.shape[0]
-    S = models.trans.shape[-1]
-    B, L = transcripts.shape
-    D = feats.shape[-1]
-    dtype = jnp.float32
-
-    # bank rows at unit-state granularity: row u*S + s
-    banks, bias2s, mixes = [], [], []
-    for stream in models.streams:
-        if cov_full:
-            bk, b2 = pack_position_bank_full(
-                stream.means, stream.inv_cov, stream.weights,
-                stream.log_abs_det(), D,
-            )
-        else:
-            bk = pack_position_bank_diag(
-                stream.means, stream.inv_cov, stream.weights,
-                stream.log_abs_det(), D,
-            )
-            b2 = None
-        banks.append(bk)
-        bias2s.append(b2)
-        mixes.append(stream.num_mixtures)
-    pos_ids = (
-        transcripts[:, :, None] * S + jnp.arange(S, dtype=jnp.int32)
-    ).reshape(B, L * S)
-    pos_logt = models.log_trans().astype(dtype)[transcripts]  # (B, L, S, S)
-
-    bank_in = tuple(banks) if multi else banks[0]
-    bias2_in = tuple(bias2s) if multi else bias2s[0]
-    mix_in = tuple(mixes) if multi else mixes[0]
-    mom, den_mix_p, den_trans_p, nt, safe_z, vmask = fused_positional_stats(
-        pos_ids, bank_in, bias2_in, pos_logt, feats, lengths, n_mix=mix_in,
-        cov_full=cov_full, k_block=k_block, group=group, interpret=interpret,
-    )
-
-    # --- unit space: moments arrive pre-scattered (bank row = u*S + s) ----
-    ids = transcripts.reshape(B * L)
-
-    def seg(a):  # (B, L, ...) -> (P, ...)
-        return jnp.zeros((P,) + a.shape[2:], dtype).at[ids].add(
-            a.reshape(B * L, *a.shape[2:])
-        )
-
-    moms = mom if multi else (mom,)
-    stream_stats = []
-    for p_s, m_p in enumerate(moms):
-        M = mixes[p_s]
-        m_p = m_p[:, :M].reshape(P, S, M, -1)  # (P, S, M, Cm)
-        if cov_full:
-            xx = m_p[..., D : D + D * D].reshape(P, S, M, D, D)
-        else:
-            xx = m_p[..., D : 2 * D]
-        stream_stats.append(
-            StreamStats(
-                w=m_p[..., m_p.shape[-1] - 1], x=m_p[..., :D], xx=xx
-            )
-        )
-    return SuffStats(
-        num_trans=seg(nt),
-        den_trans=seg(den_trans_p),
-        den_mix=seg(den_mix_p),
-        streams=tuple(stream_stats),
-        log_prob=jnp.sum(safe_z * vmask),
-        num_valid=vmask.sum(),
-    )
-
-
-def batch_stats_fused_sharded(
+def batch_stats_sharded(
     models: GmmHmm,
     transcripts: jax.Array,
     feats: jax.Array,
     lengths: jax.Array,
     mesh,
     axis: str = "data",
-    k_block: int = 16,
-    group: int = 8,
-    interpret: bool | None = None,
 ) -> SuffStats:
-    """Data-parallel fused composed E-step: each device runs the
-    bank-gather kernels on its utterance shard, unit-space statistics
-    psum over `axis` (EM stats are linear in the data — SURVEY §2.4; the
-    senone/unit scatter-reductions ARE the mixture-sharded multi-host EM
-    all-reduce payload of BASELINE config 5).  GSPMD cannot partition
-    pallas_call, so the partitioning is explicit shard_map + ICI psum,
-    exactly like train/em.e_step_fused_lane_sharded.  The batch axis
-    must divide the mesh `axis`; the model is replicated."""
+    """Data-parallel embedded E-step: each device runs batch_stats on its
+    utterance shard and the unit-space statistics psum over `axis` (EM
+    statistics are linear in the data).  The batch axis must divide the
+    mesh `axis`; the model is replicated."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     transcripts = jax.device_put(
         transcripts, NamedSharding(mesh, P(axis, None))
     )
     feats = jax.device_put(feats, NamedSharding(mesh, P(axis, None, None)))
     lengths = jax.device_put(lengths, NamedSharding(mesh, P(axis)))
-    fn = _jitted_fused_composed_shard(
-        mesh, axis, k_block, group, interpret, jax.tree.structure(models)
+    fn = _jitted_batch_stats_shard(
+        batch_stats, mesh, axis, jax.tree.structure(models)
     )
     return fn(models, transcripts, feats, lengths)
 
 
 @lru_cache(maxsize=32)
-def _jitted_fused_composed_shard(
-    mesh, axis, k_block, group, interpret, model_treedef
-):
-    """Cached jitted shard_map fused composed E-step (one trace per
-    mesh/config — the train/em._jitted_fused_shard policy)."""
+def _jitted_batch_stats_shard(stats_fn, mesh, axis, model_treedef):
+    """Cached jitted shard_map E-step over one bucket (embedded or tied
+    statistics function), statistics psum over `axis`."""
     from jax.sharding import PartitionSpec as P
 
     model_spec = jax.tree.unflatten(
@@ -642,10 +231,7 @@ def _jitted_fused_composed_shard(
     )
 
     def shard_fn(models, transcripts, feats, lengths):
-        st = batch_stats_fused(
-            models, transcripts, feats, lengths,
-            k_block=k_block, group=group, interpret=interpret,
-        )
+        st = stats_fn(models, transcripts, feats, lengths)
         return jax.tree.map(lambda a: jax.lax.psum(a, axis), st)
 
     fn = jax.shard_map(
@@ -653,42 +239,19 @@ def _jitted_fused_composed_shard(
         mesh=mesh,
         in_specs=(model_spec, P(axis, None), P(axis, None, None), P(axis)),
         out_specs=P(),
-        # pallas outputs carry no varying-mesh-axes annotation; the psum
-        # establishes the replicated out_specs by construction
+        # the lattice scans start from replicated carries; the psum of the
+        # statistics establishes replication by construction
         check_vma=False,
     )
     return jax.jit(fn)
 
 
-def embedded_train_scan_sharded(
-    models: GmmHmm,
-    packed,
-    n_iters: int,
-    mesh,
-    axis: str = "data",
-    var_floor: float = 0.0,
-    k_block: int = 16,
-    group: int = 8,
-    interpret: bool | None = None,
-):
-    """N DATA-PARALLEL embedded EM iterations as ONE jitted
-    shard_map(lax.scan) — the em.em_train_scan_sharded dispatch
-    amortization for composed-lattice (embedded) training: each device
-    runs the bank-gather kernels on its utterance shard of every bucket,
-    unit-space statistics psum over `axis` inside the scan body, and the
-    replicated vmapped unit M-step is the scan carry.
-
-    packed: tuple of (transcripts (Bk, Lk), feats (Bk, Tk, D),
-    lengths (Bk,)) shape buckets (the train_embedded packing); every
-    bucket's Bk must divide the mesh `axis` (pad with lengths == 0
-    utterances — they contribute nothing).  Returns (final models,
-    (n_iters,) log-prob history, (n_iters,) num_valid history) —
-    trajectory identical to the single-device _embedded_chunk scan.
-    """
+def shard_buckets(packed, mesh, axis: str):
+    """Place every (transcripts, feats, lengths) bucket with its batch axis
+    split over the mesh `axis` (each bucket batch must divide it — pad
+    with lengths == 0 utterances, which contribute nothing)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     n_dev = mesh.shape[axis]
     sharded = []
     for trs, feats, lengths in packed:
@@ -704,23 +267,45 @@ def embedded_train_scan_sharded(
                 jax.device_put(lengths, NamedSharding(mesh, P(axis))),
             )
         )
+    return tuple(sharded)
+
+
+def embedded_train_scan_sharded(
+    models: GmmHmm,
+    packed,
+    n_iters: int,
+    mesh,
+    axis: str = "data",
+    var_floor: float = 0.0,
+):
+    """N DATA-PARALLEL embedded EM iterations as ONE jitted
+    shard_map(lax.scan): each device runs batch_stats on its utterance
+    shard of every bucket, unit-space statistics psum over `axis` inside
+    the scan body, and the replicated vmapped unit M-step is the scan
+    carry.
+
+    packed: tuple of (transcripts (Bk, Lk), feats (Bk, Tk, D),
+    lengths (Bk,)) shape buckets (the train_embedded packing); every
+    bucket's Bk must divide the mesh `axis`.  Returns (final models,
+    (n_iters,) log-prob history, (n_iters,) num_valid history) — the
+    single-device _embedded_chunk trajectory up to the order of the
+    cross-device sum.
+    """
+    sharded = shard_buckets(packed, mesh, axis)
     fn = _jitted_embedded_sharded_scan(
-        mesh, axis, n_iters, var_floor, k_block, group, interpret,
-        jax.tree.structure(models), len(sharded),
+        mesh, axis, n_iters, var_floor, jax.tree.structure(models),
+        len(sharded),
     )
-    return fn(models, tuple(sharded))
+    return fn(models, sharded)
 
 
 @lru_cache(maxsize=32)
 def _jitted_embedded_sharded_scan(
-    mesh, axis, n_iters, var_floor, k_block, group, interpret,
-    model_treedef, n_buckets,
+    mesh, axis, n_iters, var_floor, model_treedef, n_buckets
 ):
     """Cached jitted shard_map N-iteration embedded EM scan (one trace per
     mesh/config, the em._jitted_sharded_scan policy)."""
     from jax.sharding import PartitionSpec as P
-
-    from .em import _with_log_det, m_step
 
     model_spec = jax.tree.unflatten(
         model_treedef, [P()] * model_treedef.num_leaves
@@ -731,31 +316,15 @@ def _jitted_embedded_sharded_scan(
     )
 
     def shard_fn(models, packed):
-        models = _with_log_det(models)
-
-        def step(m, _):
-            agg = None
-            for trs, feats, lengths in packed:
-                st = batch_stats_fused(
-                    m, trs, feats, lengths,
-                    k_block=k_block, group=group, interpret=interpret,
-                )
-                agg = st if agg is None else jax.tree.map(jnp.add, agg, st)
-            agg = jax.tree.map(lambda a: jax.lax.psum(a, axis), agg)
-            new = jax.vmap(
-                lambda mm, ss: m_step(mm, ss, var_floor=var_floor)
-            )(m, _unstack_stats_axis(agg))
-            return new, (agg.log_prob, agg.num_valid)
-
-        final, (lps, nvs) = jax.lax.scan(step, models, None, length=n_iters)
-        return final, lps, nvs
+        return _embedded_scan(models, packed, n_iters, var_floor, axis=axis)
 
     fn = jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(model_spec, bucket_spec),
         out_specs=(model_spec, P(), P()),
-        # the psum in the scan body establishes replication by construction
+        # the lattice scans start from replicated carries; the psum of the
+        # statistics establishes replication by construction
         check_vma=False,
     )
     return jax.jit(fn)
@@ -774,52 +343,21 @@ def utterance_stats(
     )
 
 
-def _embedded_fused_default(models: GmmHmm, D: int) -> bool:
-    """Auto-select rule shared by embedded_em_step and train_embedded:
-    fused composed kernels for homogeneous diag/full streams on TPU with
-    VMEM-resident-size banks (all streams' banks must co-reside)."""
-    if jax.default_backend() != "tpu":
-        return False
-    cov = models.streams[0].cov_type
-    if cov not in (DIAG, FULL) or any(
-        s.cov_type != cov for s in models.streams
-    ):
-        return False
-    P = models.trans.shape[0]
-    S = models.trans.shape[-1]
-    total = sum(
-        bank_vmem_bytes(P * S, s.num_mixtures, D, cov == FULL)
-        for s in models.streams
-    )
-    return total <= _BANK_VMEM_LIMIT
-
-
-@partial(jax.jit, static_argnames=("var_floor", "fused"))
+@partial(jax.jit, static_argnames=("var_floor",))
 def embedded_em_step(
     models: GmmHmm,
     transcripts: jax.Array,
     feats: jax.Array,
     lengths: jax.Array,
     var_floor: float = 0.0,
-    fused: bool | None = None,
 ):
     """One embedded EM iteration over a bucket of utterances with equal
     padded shapes.  transcripts: (B, L) unit ids (pad positions by repeating
     the last unit and masking via lengths is NOT needed — transcripts must be
     exact; bucket utterances by transcript length); feats: (B, T, D).
     Returns (new models (P-stacked), total log prob, num valid).
-
-    fused=None auto-selects the fused composed-lattice Pallas E-step
-    (batch_stats_fused) on TPU for single-stream models (diagonal or full
-    covariance) with left-right transitions (the reference structure);
-    fused=False forces the XLA path (required for multi-stream models,
-    non-left-right unit graphs, or banks too large for VMEM residency).
     """
-    if fused is None:
-        fused = _embedded_fused_default(models, feats.shape[-1])
-    stats = (batch_stats_fused if fused else batch_stats)(
-        models, transcripts, feats, lengths
-    )
+    stats = batch_stats(models, transcripts, feats, lengths)
     new_models = jax.vmap(lambda m, s: m_step(m, s, var_floor=var_floor))(
         models, _unstack_stats_axis(stats)
     )
@@ -840,21 +378,21 @@ def _unstack_stats_axis(stats: SuffStats) -> SuffStats:
     )
 
 
-@partial(jax.jit, static_argnames=("k", "var_floor", "fused"))
-def _embedded_chunk(models, packed, k, var_floor, fused):
-    """k embedded EM iterations as one lax.scan over all shape buckets
-    (the train/driver.py run_chunk contract): per iteration, bucket
-    statistics aggregate on device, then one vmapped unit M-step."""
+def _embedded_scan(models, packed, k, var_floor, axis=None):
+    """k embedded EM iterations as one lax.scan over all shape buckets:
+    per iteration, bucket statistics aggregate on device (psum over
+    `axis` when data-parallel), then one vmapped unit M-step."""
     from .em import _with_log_det
 
     models = _with_log_det(models)  # stable scan-carry pytree structure
-    stats_fn = batch_stats_fused if fused else batch_stats
 
     def step(m, _):
         agg = None
         for trs, feats, lengths in packed:
-            st = stats_fn(m, trs, feats, lengths)
+            st = batch_stats(m, trs, feats, lengths)
             agg = st if agg is None else jax.tree.map(jnp.add, agg, st)
+        if axis is not None:
+            agg = jax.tree.map(lambda a: jax.lax.psum(a, axis), agg)
         new = jax.vmap(lambda mm, ss: m_step(mm, ss, var_floor=var_floor))(
             m, _unstack_stats_axis(agg)
         )
@@ -862,6 +400,13 @@ def _embedded_chunk(models, packed, k, var_floor, fused):
 
     final, (lps, nvs) = jax.lax.scan(step, models, None, length=k)
     return final, lps, nvs
+
+
+@partial(jax.jit, static_argnames=("k", "var_floor"))
+def _embedded_chunk(models, packed, k, var_floor):
+    """k embedded EM iterations in one program (the train/driver.py
+    run_chunk contract)."""
+    return _embedded_scan(models, packed, k, var_floor)
 
 
 def train_embedded(
@@ -872,7 +417,6 @@ def train_embedded(
     max_iterations: int = 50,
     var_floor: float = 0.0,
     pad_multiple: int = 32,
-    fused: bool | None = None,
     chunk: int = 8,
     mesh=None,
     mesh_axis: str = "data",
@@ -890,22 +434,13 @@ def train_embedded(
     checkpoint with the identical trajectory (round 5: failure recovery
     for the beyond-reference trainers, VERDICT r4 missing #2).
 
-    fused=None auto-selects the fused composed-lattice Pallas E-step
-    (batch_stats_fused) exactly like embedded_em_step — the driver rides
-    the same kernels as the raw step API (round-3 fix; round 2 left the
-    driver on the XLA path and paid a host sync per bucket per
-    iteration).
-
     mesh: optional Mesh with a `mesh_axis` axis — data-parallel training
-    via embedded_train_scan_sharded (round 4: the chunk scan inside one
+    via embedded_train_scan_sharded (the chunk scan inside one
     shard_map); buckets pad with empty utterances so every bucket batch
     divides the axis."""
     from ..io.dataset import round_up
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
-
-    if fused is None:
-        fused = _embedded_fused_default(models, utterances[0].shape[1])
 
     dtype = models.trans.dtype
     buckets: dict[tuple[int, int], list[int]] = {}
@@ -938,7 +473,7 @@ def train_embedded(
             m, tuple(packed), k, mesh, axis=mesh_axis, var_floor=var_floor
         )
     else:
-        run = lambda m, k: _embedded_chunk(m, tuple(packed), k, var_floor, fused)
+        run = lambda m, k: _embedded_chunk(m, tuple(packed), k, var_floor)
     manager = None
     if checkpoint_dir is not None:
         from .checkpoint import CheckpointManager

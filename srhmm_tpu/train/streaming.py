@@ -16,21 +16,16 @@ more than one round trip.
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
 from ..io.dataset import UtteranceBatch
-from ..io.pipeline import PrefetchLoader, device_put_loader
-from ..models.gmm_hmm import DIAG, FULL, GmmHmm
-from .em import _fused_lane_eligible, _with_log_det, e_step, e_step_fused_lane, m_step
+from ..io.pipeline import device_put_loader
+from ..models.gmm_hmm import GmmHmm
+from .em import _lattice_for, _with_log_det, e_step, m_step
 
 
-_e_step_jit = jax.jit(e_step)
-_e_step_fused_jit = jax.jit(
-    e_step_fused_lane, static_argnames=("k_block", "band", "interpret")
-)
+_e_step_jit = jax.jit(e_step, static_argnames=("bf16_stats", "lattice"))
 _m_step_jit2 = jax.jit(
     m_step, static_argnames=("var_floor",)
 )
@@ -40,8 +35,6 @@ def em_step_streaming(
     model: GmmHmm,
     loader,
     var_floor: float = 0.0,
-    fused: bool | None = None,
-    band: int | None = None,
     abs_floors=None,
     zero_det_thresholds=None,
 ):
@@ -53,17 +46,7 @@ def em_step_streaming(
     Returns (new_model, total_log_prob, num_valid)."""
     agg = None
     for batch in loader:
-        if fused is None:
-            fused = _fused_lane_eligible(model, batch, False)
-        if fused and band is None:
-            from ..ops.pallas.fused_em_pallas import trans_band
-
-            band = trans_band(model.trans)
-        st = (
-            _e_step_fused_jit(model, batch, band=band, interpret=False)
-            if fused
-            else _e_step_jit(model, batch)
-        )
+        st = _e_step_jit(model, batch, lattice=_lattice_for(batch))
         agg = st if agg is None else jax.tree.map(jnp.add, agg, st)
     if agg is None:
         raise ValueError("em_step_streaming: empty loader")
@@ -95,8 +78,6 @@ def train_streaming(
     from .em_parity import TrainResult
 
     model = _with_log_det(model)
-    fused = None
-    band = None
     old = 1.0
     history: list[float] = []
     iteration = 0
@@ -105,8 +86,8 @@ def train_streaming(
         iteration += 1
         loader = device_put_loader(host_shards, depth=depth)
         new_model, log_prob, num_valid = em_step_streaming(
-            model, loader, var_floor=var_floor, fused=fused, band=band,
-            abs_floors=abs_floors, zero_det_thresholds=zero_det_thresholds,
+            model, loader, var_floor=var_floor, abs_floors=abs_floors,
+            zero_det_thresholds=zero_det_thresholds,
         )
         lp = float(log_prob) + log_prob_offset
         n_valid = int(num_valid)

@@ -20,12 +20,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..models.gmm_hmm import FULL
 from ..models.tying import TiedHmmSet
 from ..ops.emission import log_mixture_posteriors
 from ..ops.forward_backward import log_backward_full, log_forward_full
 from .em import StreamStats, gmm_moment_stats, update_stream
-from .embedded import _composed_log_trans
+from .embedded import (
+    _composed_log_trans,
+    _jitted_batch_stats_shard,
+    shard_buckets,
+)
 
 
 def tied_utterance_stats_positional(
@@ -153,134 +156,28 @@ def tied_batch_stats(
     return sen_stats, den_mix, num_trans, den_trans, log_prob.sum(), valid.sum()
 
 
-def tied_batch_stats_fused(
-    tied: TiedHmmSet,
-    transcripts: jax.Array,
-    feats: jax.Array,
-    lengths: jax.Array,
-    k_block: int = 16,
-    group: int = 8,
-    interpret: bool | None = None,
-):
-    """tied_batch_stats on the fused composed-lattice Pallas kernels
-    (ops/pallas/composed_pallas.py via train/embedded.fused_positional_stats)
-    — diagonal OR full-covariance senones, LEFT-RIGHT unit transitions.
-
-    The SENONE inventory itself is the VMEM-resident kernel bank and the
-    per-position senone ids (state_map over the transcript — tying IS the
-    id map) are the scalar-prefetched in-kernel gather indices; positional
-    statistics come back from the shared fused core, and the scatter into
-    senone space is the same segment-sum as the XLA path.  Same return
-    contract as tied_batch_stats (test-locked equivalent)."""
-    from .embedded import (
-        fused_positional_stats,
-        pack_position_bank_diag,
-        pack_position_bank_full,
-    )
-
-    sen = tied.senones
-    cov_full = sen.cov_type == FULL
-    P, S, N = tied.num_units, tied.num_states, tied.num_senones
-    B, L = transcripts.shape
-    D = feats.shape[-1]
-    M = sen.weights.shape[-1]
-    LS = L * S
-    dtype = jnp.float32
-
-    if cov_full:
-        bank, bias2 = pack_position_bank_full(
-            sen.means, sen.inv_cov, sen.weights, sen.log_abs_det(), D
-        )
-    else:
-        bank = pack_position_bank_diag(
-            sen.means, sen.inv_cov, sen.weights, sen.log_abs_det(), D
-        )
-        bias2 = None
-    sen_ids = tied.state_map[transcripts]  # (B, L, S)
-    flat_ids = sen_ids.reshape(B, LS)
-    pos_logt = tied.log_trans().astype(dtype)[transcripts]  # (B, L, S, S)
-
-    mom, den_mix_p, den_trans_p, nt, safe_z, vmask = fused_positional_stats(
-        flat_ids, bank, bias2, pos_logt, feats, lengths, n_mix=M,
-        cov_full=cov_full, k_block=k_block, group=group, interpret=interpret,
-    )
-
-    # senone-space moments arrive pre-scattered (bank row = senone id)
-    mom = mom[:, :M]  # (N, M, Cm)
-    ids = sen_ids.reshape(B * LS)
-    if cov_full:
-        xx = mom[..., D : D + D * D].reshape(N, M, D, D)
-    else:
-        xx = mom[..., D : 2 * D]
-    sen_stats = StreamStats(
-        w=mom[..., mom.shape[-1] - 1], x=mom[..., :D], xx=xx
-    )
-    den_mix = jnp.zeros((N,), dtype).at[ids].add(den_mix_p.reshape(B * LS))
-
-    unit_ids = transcripts.reshape(B * L)
-    num_trans = jnp.zeros((P, S, S), dtype).at[unit_ids].add(
-        nt.reshape(B * L, S, S)
-    )
-    den_trans = jnp.zeros((P, S), dtype).at[unit_ids].add(
-        den_trans_p.reshape(B * L, S)
-    )
-    return sen_stats, den_mix, num_trans, den_trans, jnp.sum(safe_z * vmask), vmask.sum()
-
-
-def tied_batch_stats_fused_sharded(
+def tied_batch_stats_sharded(
     tied: TiedHmmSet,
     transcripts: jax.Array,
     feats: jax.Array,
     lengths: jax.Array,
     mesh,
     axis: str = "data",
-    k_block: int = 16,
-    group: int = 8,
-    interpret: bool | None = None,
 ):
-    """Data-parallel fused tied E-step: each device runs the bank-gather
-    kernels on its utterance shard, senone/unit-space statistics psum
-    over `axis` — the mixture-sharded multi-host EM all-reduce of
-    BASELINE config 5, on the fused kernels (GSPMD cannot partition
-    pallas_call; explicit shard_map + ICI psum, the
-    train/em.e_step_fused_lane_sharded pattern).  Same return contract
-    as tied_batch_stats."""
+    """Data-parallel tied E-step: each device runs tied_batch_stats on its
+    utterance shard and the senone/unit-space statistics psum over `axis`.
+    Same return contract as tied_batch_stats."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     transcripts = jax.device_put(
         transcripts, NamedSharding(mesh, P(axis, None))
     )
     feats = jax.device_put(feats, NamedSharding(mesh, P(axis, None, None)))
     lengths = jax.device_put(lengths, NamedSharding(mesh, P(axis)))
-    fn = _jitted_tied_shard(
-        mesh, axis, k_block, group, interpret, jax.tree.structure(tied)
+    fn = _jitted_batch_stats_shard(
+        tied_batch_stats, mesh, axis, jax.tree.structure(tied)
     )
     return fn(tied, transcripts, feats, lengths)
-
-
-@lru_cache(maxsize=32)
-def _jitted_tied_shard(mesh, axis, k_block, group, interpret, treedef):
-    from jax.sharding import PartitionSpec as P
-
-    tied_spec = jax.tree.unflatten(treedef, [P()] * treedef.num_leaves)
-
-    def shard_fn(tied, transcripts, feats, lengths):
-        st = tied_batch_stats_fused(
-            tied, transcripts, feats, lengths,
-            k_block=k_block, group=group, interpret=interpret,
-        )
-        return jax.tree.map(lambda a: jax.lax.psum(a, axis), st)
-
-    fn = jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(tied_spec, P(axis, None), P(axis, None, None), P(axis)),
-        out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(fn)
 
 
 def tied_train_scan_sharded(
@@ -290,55 +187,26 @@ def tied_train_scan_sharded(
     mesh,
     axis: str = "data",
     var_floor: float = 0.0,
-    k_block: int = 16,
-    group: int = 8,
-    interpret: bool | None = None,
 ):
     """N DATA-PARALLEL tied EM iterations as ONE jitted
     shard_map(lax.scan) — the embedded.embedded_train_scan_sharded form
-    for senone inventories: per shard bank-gather kernels, senone-space
-    psum inside the scan body, replicated tied update as the scan carry.
+    for senone inventories: per-shard tied_batch_stats, senone-space psum
+    inside the scan body, replicated tied update as the scan carry.
 
     packed: tuple of (transcripts, feats, lengths) shape buckets (the
     train_tied packing); every bucket batch must divide the mesh `axis`.
     Returns (final TiedHmmSet, (n_iters,) log-prob history, (n_iters,)
-    num_valid history) — trajectory identical to the single-device
-    _tied_chunk scan."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    n_dev = mesh.shape[axis]
-    sharded = []
-    for trs, feats, lengths in packed:
-        if trs.shape[0] % n_dev:
-            raise ValueError(
-                f"bucket batch {trs.shape[0]} not divisible by mesh axis "
-                f"'{axis}' ({n_dev}); pad with empty utterances"
-            )
-        sharded.append(
-            (
-                jax.device_put(trs, NamedSharding(mesh, P(axis, None))),
-                jax.device_put(feats, NamedSharding(mesh, P(axis, None, None))),
-                jax.device_put(lengths, NamedSharding(mesh, P(axis))),
-            )
-        )
-    if tied.senones.log_det is None:  # stable scan-carry pytree structure
-        tied = tied.replace(
-            senones=tied.senones.replace(log_det=tied.senones.log_abs_det())
-        )
+    num_valid history)."""
+    sharded = shard_buckets(packed, mesh, axis)
+    tied = _with_senone_log_det(tied)
     fn = _jitted_tied_sharded_scan(
-        mesh, axis, n_iters, var_floor, k_block, group, interpret,
-        jax.tree.structure(tied), len(sharded),
+        mesh, axis, n_iters, var_floor, jax.tree.structure(tied), len(sharded)
     )
-    return fn(tied, tuple(sharded))
+    return fn(tied, sharded)
 
 
 @lru_cache(maxsize=32)
-def _jitted_tied_sharded_scan(
-    mesh, axis, n_iters, var_floor, k_block, group, interpret, treedef,
-    n_buckets,
-):
+def _jitted_tied_sharded_scan(mesh, axis, n_iters, var_floor, treedef, n_buckets):
     from jax.sharding import PartitionSpec as P
 
     tied_spec = jax.tree.unflatten(treedef, [P()] * treedef.num_leaves)
@@ -348,64 +216,40 @@ def _jitted_tied_sharded_scan(
     )
 
     def shard_fn(tied, packed):
-        def step(t, _):
-            agg = None
-            for trs, feats, lengths in packed:
-                st = tied_batch_stats_fused(
-                    t, trs, feats, lengths,
-                    k_block=k_block, group=group, interpret=interpret,
-                )
-                agg = st if agg is None else jax.tree.map(jnp.add, agg, st)
-            agg = jax.tree.map(lambda a: jax.lax.psum(a, axis), agg)
-            return _apply_tied_update(t, agg, var_floor), (agg[4], agg[5])
-
-        final, (lps, nvs) = jax.lax.scan(step, tied, None, length=n_iters)
-        return final, lps, nvs
+        return _tied_scan(tied, packed, n_iters, var_floor, axis=axis)
 
     fn = jax.shard_map(
         shard_fn,
         mesh=mesh,
         in_specs=(tied_spec, bucket_spec),
         out_specs=(tied_spec, P(), P()),
+        # the lattice scans start from replicated carries; the psum of the
+        # statistics establishes replication by construction
         check_vma=False,
     )
     return jax.jit(fn)
 
 
-def _tied_fused_default(tied: TiedHmmSet, D: int) -> bool:
-    """Auto-select rule shared by tied_em_step and train_tied: fused
-    composed kernels on TPU when the senone bank fits VMEM-resident."""
-    from .embedded import fused_bank_eligible
-
-    if jax.default_backend() != "tpu":
-        return False
-    sen = tied.senones
-    return fused_bank_eligible(
-        tied.num_senones, sen.weights.shape[-1], D, sen.cov_type == FULL
+def _with_senone_log_det(tied: TiedHmmSet) -> TiedHmmSet:
+    """Materialize the senones' log_det (a stable scan-carry structure)."""
+    if tied.senones.log_det is not None:
+        return tied
+    return tied.replace(
+        senones=tied.senones.replace(log_det=tied.senones.log_abs_det())
     )
 
 
-@partial(jax.jit, static_argnames=("var_floor", "fused"))
+@partial(jax.jit, static_argnames=("var_floor",))
 def tied_em_step(
     tied: TiedHmmSet,
     transcripts: jax.Array,
     feats: jax.Array,
     lengths: jax.Array,
     var_floor: float = 0.0,
-    fused: bool | None = None,
 ):
     """One tied-state embedded EM iteration over an equal-shape bucket.
-    Returns (new TiedHmmSet, total log prob, num valid).
-
-    fused=None auto-selects the fused composed-lattice Pallas E-step on
-    TPU for diagonal or full-covariance senones (left-right unit
-    transitions assumed, the reference structure) whenever the senone bank
-    fits VMEM-resident; fused=False forces the XLA path."""
-    if fused is None:
-        fused = _tied_fused_default(tied, feats.shape[-1])
-    stats = (tied_batch_stats_fused if fused else tied_batch_stats)(
-        tied, transcripts, feats, lengths
-    )
+    Returns (new TiedHmmSet, total log prob, num valid)."""
+    stats = tied_batch_stats(tied, transcripts, feats, lengths)
     return _apply_tied_update(tied, stats, var_floor), stats[4], stats[5]
 
 
@@ -424,27 +268,29 @@ def _apply_tied_update(tied: TiedHmmSet, stats, var_floor: float) -> TiedHmmSet:
     return tied.replace(senones=senones, trans=trans_new)
 
 
-@partial(jax.jit, static_argnames=("k", "var_floor", "fused"))
-def _tied_chunk(tied, packed, k, var_floor, fused):
-    """k tied EM iterations as one lax.scan over all shape buckets (the
-    train/driver.py run_chunk contract)."""
-    from .em import _with_log_det
-
-    if tied.senones.log_det is None:  # stable scan-carry pytree structure
-        tied = tied.replace(
-            senones=tied.senones.replace(log_det=tied.senones.log_abs_det())
-        )
-    stats_fn = tied_batch_stats_fused if fused else tied_batch_stats
+def _tied_scan(tied, packed, k, var_floor, axis=None):
+    """k tied EM iterations as one lax.scan over all shape buckets
+    (statistics psum over `axis` when data-parallel)."""
+    tied = _with_senone_log_det(tied)
 
     def step(t, _):
         agg = None
         for trs, feats, lengths in packed:
-            st = stats_fn(t, trs, feats, lengths)
+            st = tied_batch_stats(t, trs, feats, lengths)
             agg = st if agg is None else jax.tree.map(jnp.add, agg, st)
+        if axis is not None:
+            agg = jax.tree.map(lambda a: jax.lax.psum(a, axis), agg)
         return _apply_tied_update(t, agg, var_floor), (agg[4], agg[5])
 
     final, (lps, nvs) = jax.lax.scan(step, tied, None, length=k)
     return final, lps, nvs
+
+
+@partial(jax.jit, static_argnames=("k", "var_floor"))
+def _tied_chunk(tied, packed, k, var_floor):
+    """k tied EM iterations in one program (the train/driver.py run_chunk
+    contract)."""
+    return _tied_scan(tied, packed, k, var_floor)
 
 
 def train_tied(
@@ -455,7 +301,6 @@ def train_tied(
     max_iterations: int = 50,
     var_floor: float = 0.0,
     pad_multiple: int = 32,
-    fused: bool | None = None,
     chunk: int = 8,
     mesh=None,
     mesh_axis: str = "data",
@@ -465,12 +310,10 @@ def train_tied(
     """Tied-state embedded EM driver (bucketed by shape): iterations run
     in device-side scans of `chunk`, speculatively pipelined by the
     chunked convergence driver (train/driver.py), with the exact
-    reference convergence semantics.  fused=None auto-selects the fused
-    composed-lattice Pallas E-step exactly like tied_em_step (round-3
-    fix: the driver rides the same kernels as the raw step API).
+    reference convergence semantics.
 
     mesh: optional Mesh with a `mesh_axis` axis — data-parallel training
-    via tied_train_scan_sharded (round 4); buckets pad with empty
+    via tied_train_scan_sharded; buckets pad with empty
     utterances so every bucket batch divides the axis.
 
     checkpoint_dir: optional directory — chunk-granular checkpoint/resume
@@ -481,9 +324,6 @@ def train_tied(
     from ..io.dataset import round_up
     from .driver import chunked_convergence_train
     from .em_parity import TrainResult
-
-    if fused is None:
-        fused = _tied_fused_default(tied, utterances[0].shape[1])
 
     dtype = tied.trans.dtype
     buckets: dict[tuple[int, int], list[int]] = {}
@@ -508,16 +348,13 @@ def train_tied(
             t, tuple(packed), k, mesh, axis=mesh_axis, var_floor=var_floor
         )
     else:
-        run = lambda t, k: _tied_chunk(t, tuple(packed), k, var_floor, fused)
+        run = lambda t, k: _tied_chunk(t, tuple(packed), k, var_floor)
     manager = None
     if checkpoint_dir is not None:
         from .checkpoint import CheckpointManager
 
         manager = CheckpointManager(checkpoint_dir)
-        if tied.senones.log_det is None:  # match the chunk-scan carry
-            tied = tied.replace(
-                senones=tied.senones.replace(log_det=tied.senones.log_abs_det())
-            )
+        tied = _with_senone_log_det(tied)  # match the chunk-scan carry
     tied, iteration, history, n_valid = chunked_convergence_train(
         tied, run, threshold=threshold, max_iterations=max_iterations,
         chunk=chunk, checkpoint=manager, log_prob_offset=log_prob_offset,

@@ -1,9 +1,9 @@
 """Profiling / tracing hooks.
 
 The reference profiles with gprof (-pg in every Makefile) and coarse
-times()-based counters (SURVEY §5).  TPU-native replacements:
+times()-based counters (SURVEY §5).  Replacements:
 
-* `trace(dir)` — jax.profiler trace context (XLA/TPU timeline, viewable in
+* `trace(dir)` — jax.profiler trace context (XLA device timeline, viewable in
   TensorBoard / xprof);
 * `Throughput` — audio-seconds/s and frames/s counters with device sync;
 * `timed` — block timer with block_until_ready semantics for honest device
@@ -20,7 +20,7 @@ import jax
 
 @contextmanager
 def trace(log_dir: str):
-    """Capture an XLA/TPU profiler trace for the enclosed block."""
+    """Capture a jax.profiler device trace for the enclosed block."""
     jax.profiler.start_trace(log_dir)
     try:
         yield

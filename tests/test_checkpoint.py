@@ -1,8 +1,10 @@
 """Checkpoint/resume: interrupted training resumes with an identical
 trajectory; manager GC and atomicity."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from srhmm_tpu.init.lbg import create_initial_model
 from srhmm_tpu.io import read_perfil
@@ -152,3 +154,30 @@ def test_tied_resume_identical_trajectory(tmp_path):
         np.asarray(ref.model.senones.means),
         rtol=1e-5,
     )
+
+
+def test_npz_checkpoint_roundtrip_keeps_dtypes_and_static_fields(tmp_path):
+    """The .npz payload restores every leaf with its dtype and shape into
+    the template's structure (static fields such as cov_type and word come
+    from the template's treedef)."""
+    units = _toy_units()
+    mixed = units.replace(trans=units.trans.astype(jnp.float64))
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(mixed, EmDriverState(iteration=3, old_log_prob=-1.5, history=[-2.0, -1.5]))
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".json", ".npz"]
+    got, state = mgr.latest(mixed)
+    assert state.iteration == 3 and state.history == [-2.0, -1.5]
+    assert got.word == mixed.word
+    assert got.streams[0].cov_type == mixed.streams[0].cov_type
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(mixed)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_npz_checkpoint_rejects_a_different_structure(tmp_path):
+    """Restoring against a template of another shape is an error, not a
+    silently mismatched model."""
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(_toy_units(P=3), EmDriverState(iteration=1, old_log_prob=0.0, history=[]))
+    with pytest.raises(ValueError, match="does not match"):
+        mgr.latest(_toy_units(P=2))

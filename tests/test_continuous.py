@@ -339,405 +339,65 @@ def test_block_engine_scales_to_200_words():
     assert hyps[0][1] == truth
 
 
-def test_fused_decode_matches_block_engine():
-    """The fused lane-major decode kernel (ops/pallas/decode_pallas.py)
-    must reproduce token_passing_blocks: identical final token scores per
-    utterance and identical decoded word sequences (continuous random
-    emissions — tie probability zero)."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        decode_continuous,
-        decode_continuous_batch,
-        token_passing_blocks,
-        token_passing_fused,
-    )
-    from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
-
-    rng = np.random.default_rng(0)
-    W, S, D = 5, 4, 6
-    vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
-        jnp.float32
-    )
-    # utterances that roughly follow word models so decodes are non-trivial
+def _loop_utterances(vocab, rng, n_utts, n_words=3, D=None, noise=0.4):
+    """Utterances that roughly follow the vocabulary's word models, so the
+    decodes are non-trivial (continuous random emissions: no exact ties)."""
+    W = vocab.trans.shape[0]
+    S = vocab.trans.shape[-1]
+    means = np.asarray(vocab.streams[0].means)
+    D = means.shape[-1]
     utts = []
-    for b in range(4):
+    for _ in range(n_utts):
         frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]  # (S, 1, D)
-            for s in range(S):
-                for _ in range(4 + int(rng.integers(0, 3))):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
-    batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    graph = compose_word_loop_blocks(vocab)
-    final_f, bps_f, s_eff = token_passing_fused(
-        vocab, graph, batch, k_block=4, interpret=True
-    )
-    assert s_eff == S
-    fin_f = np.asarray(final_f)
-
-    results = decode_continuous_batch(vocab, batch, interpret=True)
-    for b, u in enumerate(utts):
-        frames = jnp.asarray(u, jnp.float32)
-        log_b = composed_emissions(vocab, frames)
-        final_x, _ = token_passing_blocks(graph, log_b, n_best=1)
-        fx = np.asarray(final_x)[:, 0]
-        got = fin_f[:, b]
-        finite = np.isfinite(fx)
-        assert (np.isfinite(got[finite])).all()
-        np.testing.assert_allclose(got[finite], fx[finite], rtol=2e-5, atol=1e-3)
-        ref = decode_continuous(vocab, frames, n_best=1)[0]
-        score_b, words_b, spans_b = results[b]
-        assert words_b == ref[1], (b, words_b, ref[1])
-        np.testing.assert_allclose(score_b, ref[0], rtol=2e-5)
-
-
-def test_fused_decode_bigram_matches_block_engine():
-    """BIGRAM LM on the fused decode kernel (round 4): the in-kernel
-    (W, W) (max, +) cross-arc contraction must reproduce
-    token_passing_blocks with the same bigram graph — final token scores
-    and decoded word sequences (needs s_word % 8 == 0)."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        token_passing_blocks,
-        token_passing_fused,
-    )
-    from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
-
-    rng = np.random.default_rng(3)
-    W, S, D = 5, 8, 6
-    vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
-        jnp.float32
-    )
-    # a genuinely non-decomposable bigram: per-(src, dst) log-probs
-    lm = np.log(rng.dirichlet(np.ones(W), size=W))  # (W, W) rows normalized
-    graph = compose_word_loop_blocks(vocab, lm_logprobs=lm)
-    assert not np.allclose(np.asarray(graph.arc), np.asarray(graph.arc)[0:1])
-
-    utts = []
-    for b in range(3):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
+        for w in rng.integers(0, W, size=n_words):
             for s in range(S):
                 for _ in range(3 + int(rng.integers(0, 3))):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
+                    frames.append(means[w, s, 0] + noise * rng.normal(size=D))
         utts.append(np.asarray(frames))
-    batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    final_f, bps_f, s_eff = token_passing_fused(
-        vocab, graph, batch, k_block=4, interpret=True
-    )
-    assert s_eff == S
-    fin_f = np.asarray(final_f)
-
-    for b, u in enumerate(utts):
-        frames = jnp.asarray(u, jnp.float32)
-        log_b = composed_emissions(vocab, frames)
-        final_x, _ = token_passing_blocks(graph, log_b, n_best=1)
-        fx = np.asarray(final_x)[:, 0]
-        got = fin_f[:, b]
-        finite = np.isfinite(fx)
-        assert np.isfinite(got[finite]).all()
-        np.testing.assert_allclose(got[finite], fx[finite], rtol=2e-5, atol=1e-3)
+    return utts
 
 
-def test_fused_decode_bigram_padded_states_matches_block_engine():
-    """BIGRAM fused decode with s_word NOT a multiple of 8 (round 4):
-    token_passing_fused auto-pads every word with unreachable filler
-    states and keeps the real exit row live through the kernel's
-    exit_col/exitrow operands.  Scores at real states and the full
-    decode_continuous_batch word sequences must match the XLA engines at
-    the reference's own 6-state shape."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        decode_continuous,
-        decode_continuous_batch,
-        token_passing_blocks,
-        token_passing_fused,
-    )
+@pytest.mark.parametrize(
+    "S,lm_kind,n_best",
+    [
+        (4, "unigram", 1),
+        (8, "bigram", 1),
+        (6, "bigram", 1),  # the reference trainer's own 6-state shape
+        (4, "unigram", 2),
+        (4, "bigram", 2),
+        (4, "unigram", 3),
+        (5, "bigram", 3),
+        (4, "bigram", 4),
+    ],
+)
+def test_batched_decode_matches_single(S, lm_kind, n_best):
+    """decode_continuous_batch (the block engine vmapped over a padded
+    batch, one batched backtrace) must reproduce decode_continuous on each
+    utterance alone: identical word strings and spans, scores within the
+    tolerance of srhmm_tpu.checks, for unigram and bigram LMs and
+    n_best 1-4."""
+    from srhmm_tpu.checks import compare_batched_decode
     from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
 
-    rng = np.random.default_rng(7)
-    W, S, D = 5, 6, 4  # the reference trainer's own 6-state shape
+    rng = np.random.default_rng(3 * S + n_best)
+    W, D = 5, 6
     vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
         jnp.float32
     )
-    lm = np.log(rng.dirichlet(np.ones(W), size=W))  # genuine bigram
-    graph = compose_word_loop_blocks(vocab, lm_logprobs=lm)
-    assert not np.allclose(np.asarray(graph.arc), np.asarray(graph.arc)[0:1])
-
-    utts = []
-    for b in range(3):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
-            for s in range(S):
-                for _ in range(3 + int(rng.integers(0, 3))):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
+    lm = (
+        np.log(rng.dirichlet(np.ones(W), size=W)) if lm_kind == "bigram" else None
+    )
+    utts = _loop_utterances(vocab, rng, 3)
     batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    final_f, bps_f, s_eff = token_passing_fused(
-        vocab, graph, batch, k_block=4, interpret=True
+    out = compare_batched_decode(
+        vocab, batch, range(len(utts)), n_best=n_best, lm_logprobs=lm
     )
-    assert s_eff == 8  # padded from 6
-    fin_f = np.asarray(final_f).reshape(W, s_eff, -1)[:, :S]  # real states
-
-    results = decode_continuous_batch(
-        vocab, batch, lm_logprobs=lm, interpret=True
-    )
-    for b, u in enumerate(utts):
-        frames = jnp.asarray(u, jnp.float32)
-        log_b = composed_emissions(vocab, frames)
-        final_x, _ = token_passing_blocks(graph, log_b, n_best=1)
-        fx = np.asarray(final_x)[:, 0].reshape(W, S)
-        got = fin_f[:, :, b]
-        finite = np.isfinite(fx)
-        assert np.isfinite(got[finite]).all()
-        np.testing.assert_allclose(got[finite], fx[finite], rtol=2e-5, atol=1e-3)
-        ref = decode_continuous(vocab, frames, lm_logprobs=lm, n_best=1)[0]
-        score_b, words_b, spans_b = results[b]
-        assert words_b == ref[1], (b, words_b, ref[1])
-        np.testing.assert_allclose(score_b, ref[0], rtol=2e-5)
-
-
-def test_fused_decode_k2_matches_block_engine():
-    """n_best=2 on the fused K=2 decode kernel (round 4): both token
-    planes' final scores must reproduce token_passing_blocks(n_best=2) —
-    the in-kernel top-2 merges see the same candidate sets."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        token_passing_blocks,
-        token_passing_fused_k2,
-    )
-    from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
-
-    rng = np.random.default_rng(5)
-    W, S, D = 5, 4, 6
-    vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
-        jnp.float32
-    )
-    utts = []
-    for b in range(3):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
-            for s in range(S):
-                for _ in range(3 + int(rng.integers(0, 3))):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
-    batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    graph = compose_word_loop_blocks(vocab)
-    final_f, bps_f, s_eff = token_passing_fused_k2(
-        vocab, graph, batch, k_block=4, interpret=True
-    )
-    assert s_eff == S
-    fin = np.asarray(final_f)  # (2, W*S, B)
-
-    for b, u in enumerate(utts):
-        frames = jnp.asarray(u, jnp.float32)
-        log_b = composed_emissions(vocab, frames)
-        final_x, _ = token_passing_blocks(graph, log_b, n_best=2)
-        fx = np.asarray(final_x)  # (W*S, 2)
-        for k in range(2):
-            ref = fx[:, k]
-            got = fin[k, :, b]
-            finite = np.isfinite(ref)
-            assert (np.isfinite(got) == finite).all(), (b, k)
-            np.testing.assert_allclose(
-                got[finite], ref[finite], rtol=2e-5, atol=1e-3
-            )
-
-
-def test_fused_decode_kn_matches_block_engine():
-    """General n_best=K kernel (round 4, K-slot insertion network +
-    per-row take-counter global top-K cross merge): K=3 and K=4 final
-    scores must reproduce token_passing_blocks(n_best=K), and the
-    batched K=3 decode's deduped hypotheses must match
-    decode_continuous."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        decode_continuous,
-        decode_continuous_batch,
-        token_passing_blocks,
-        token_passing_fused_kn,
-    )
-    from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
-
-    rng = np.random.default_rng(13)
-    W, S, D = 5, 4, 6
-    vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
-        jnp.float32
-    )
-    graph = compose_word_loop_blocks(vocab)
-    utts = []
-    for b in range(3):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
-            for s in range(S):
-                for _ in range(3 + int(rng.integers(0, 3))):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
-    batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    for K in (3, 4):
-        final_f, bps_f, s_eff = token_passing_fused_kn(
-            vocab, graph, batch, n_best=K, k_block=2, interpret=True
-        )
-        assert s_eff == S
-        fin = np.asarray(final_f)
-        for b, u in enumerate(utts):
-            log_b = composed_emissions(vocab, jnp.asarray(u, jnp.float32))
-            fx = np.asarray(token_passing_blocks(graph, log_b, n_best=K)[0])
-            for k in range(K):
-                ref, got = fx[:, k], fin[k, :, b]
-                finite = np.isfinite(ref)
-                assert (np.isfinite(got) == finite).all(), (K, b, k)
-                np.testing.assert_allclose(
-                    got[finite], ref[finite], rtol=2e-5, atol=1e-3
-                )
-
-    results = decode_continuous_batch(vocab, batch, n_best=3, interpret=True)
-    for b, u in enumerate(utts):
-        ref = decode_continuous(vocab, jnp.asarray(u, jnp.float32), n_best=3)
-        for (rs, rw, _), (gs, gw, _) in zip(ref, results[b]):
-            assert gw == rw, (b, gw, rw)
-            np.testing.assert_allclose(gs, rs, rtol=2e-5)
-
-    # BIGRAM K=3 (late round 4): per-(source, destination) take-counter
-    # top-K — at a state count that forces the auto-padded path
-    lm = np.log(rng.dirichlet(np.ones(W), size=W))
-    graph_b = compose_word_loop_blocks(vocab, lm_logprobs=lm)
-    assert not np.allclose(np.asarray(graph_b.arc), np.asarray(graph_b.arc)[0:1])
-    final_f, bps_f, s_eff = token_passing_fused_kn(
-        vocab, graph_b, batch, n_best=3, k_block=1, interpret=True
-    )
-    assert s_eff == 8  # padded from 4
-    fin = np.asarray(final_f).reshape(3, W, s_eff, -1)[:, :, :S]
-    for b, u in enumerate(utts):
-        log_b = composed_emissions(vocab, jnp.asarray(u, jnp.float32))
-        fx = np.asarray(
-            token_passing_blocks(graph_b, log_b, n_best=3)[0]
-        ).reshape(W, S, 3)
-        for k in range(3):
-            ref, got = fx[:, :, k], fin[k, :, :, b]
-            finite = np.isfinite(ref)
-            assert np.isfinite(got[finite]).all(), (b, k)
-            np.testing.assert_allclose(
-                got[finite], ref[finite], rtol=2e-5, atol=1e-3
-            )
-    results = decode_continuous_batch(
-        vocab, batch, lm_logprobs=lm, n_best=3, interpret=True
-    )
-    for b, u in enumerate(utts):
-        ref = decode_continuous(
-            vocab, jnp.asarray(u, jnp.float32), lm_logprobs=lm, n_best=3
-        )
-        for (rs, rw, _), (gs, gw, _) in zip(ref, results[b]):
-            assert gw == rw, (b, gw, rw)
-            np.testing.assert_allclose(gs, rs, rtol=2e-5)
-
-
-def test_fused_decode_k2_bigram_matches_block_engine():
-    """n_best=2 + BIGRAM on the fused K=2 kernel (round 4): the per-plane
-    (W, W) (max, +) contraction's union top-2 (best source's both planes
-    vs runner-up source) must reproduce token_passing_blocks(n_best=2)
-    with the same bigram graph — at a state count that forces the
-    auto-padded path (S=6)."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        decode_continuous,
-        decode_continuous_batch,
-        token_passing_blocks,
-        token_passing_fused_k2,
-    )
-    from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
-
-    rng = np.random.default_rng(11)
-    W, S, D = 5, 6, 4
-    vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
-        jnp.float32
-    )
-    lm = np.log(rng.dirichlet(np.ones(W), size=W))  # genuine bigram
-    graph = compose_word_loop_blocks(vocab, lm_logprobs=lm)
-    assert not np.allclose(np.asarray(graph.arc), np.asarray(graph.arc)[0:1])
-
-    utts = []
-    for b in range(3):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
-            for s in range(S):
-                for _ in range(3 + int(rng.integers(0, 3))):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
-    batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    final_f, bps_f, s_eff = token_passing_fused_k2(
-        vocab, graph, batch, k_block=4, interpret=True
-    )
-    assert s_eff == 8  # padded from 6
-    fin = np.asarray(final_f).reshape(2, W, s_eff, -1)[:, :, :S]
-
-    for b, u in enumerate(utts):
-        frames = jnp.asarray(u, jnp.float32)
-        log_b = composed_emissions(vocab, frames)
-        final_x, _ = token_passing_blocks(graph, log_b, n_best=2)
-        fx = np.asarray(final_x).reshape(W, S, 2)
-        for k in range(2):
-            ref = fx[:, :, k]
-            got = fin[k, :, :, b]
-            finite = np.isfinite(ref)
-            assert np.isfinite(got[finite]).all(), (b, k)
-            np.testing.assert_allclose(
-                got[finite], ref[finite], rtol=2e-5, atol=1e-3
-            )
-
-    # end-to-end: batched 2-best hypotheses match the single-utterance engine
-    results = decode_continuous_batch(
-        vocab, batch, lm_logprobs=lm, n_best=2, interpret=True
-    )
-    for b, u in enumerate(utts):
-        ref = decode_continuous(
-            vocab, jnp.asarray(u, jnp.float32), lm_logprobs=lm, n_best=2
-        )
-        for (rs, rw, _), (gs, gw, _) in zip(ref, results[b]):
-            assert gw == rw, (b, gw, rw)
-            np.testing.assert_allclose(gs, rs, rtol=2e-5)
+    assert out["ok"], out
 
 
 def test_decode_continuous_batch_k2_matches_single():
-    """decode_continuous_batch(n_best=2) (fused K=2 kernel + flat-id
-    batched backtrace) must reproduce decode_continuous's top-2
-    hypotheses per utterance."""
+    """decode_continuous_batch(n_best=2) (flat-id batched backtrace) must
+    reproduce decode_continuous's top-2 hypotheses per utterance."""
     import numpy as np
 
     from srhmm_tpu.decode.continuous import (
@@ -763,7 +423,7 @@ def test_decode_continuous_batch_k2_matches_single():
         utts.append(np.asarray(frames))
     batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
 
-    results = decode_continuous_batch(vocab, batch, n_best=2, interpret=True)
+    results = decode_continuous_batch(vocab, batch, n_best=2)
     for b, u in enumerate(utts):
         ref = decode_continuous(vocab, jnp.asarray(u, jnp.float32), n_best=2)
         hyps = results[b]
@@ -773,29 +433,18 @@ def test_decode_continuous_batch_k2_matches_single():
             assert words == ref[r][1], (b, r, words, ref[r][1])
 
 
-def test_fused_decode_full_cov_matches_block_engine():
-    """FULL-covariance fused decode (late round 4): the decode kernels
-    share the scoring kernel's d-major Cholesky z-GEMM emission
-    (_frame_log_b), so the reference's canonical covariance regime
-    (T1:1834-1887) rides the fused path across {unigram, bigram} x
-    {K=1, 2, 3} at the reference's own 6-state shape (bigram
-    auto-padded)."""
-    import numpy as np
-
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        composed_emissions,
-        decode_continuous,
-        decode_continuous_batch,
-        token_passing_blocks,
-        token_passing_fused,
-        token_passing_fused_k2,
-        token_passing_fused_kn,
-    )
+@pytest.mark.parametrize(
+    "lm_kind,n_best", [("unigram", 1), ("bigram", 1), ("unigram", 2), ("bigram", 3)]
+)
+def test_batched_decode_full_cov(lm_kind, n_best):
+    """FULL-covariance vocabularies (the reference's canonical covariance
+    regime, T1:1834-1887) at the reference's own 6-state shape: the
+    batched decoder matches the per-utterance engine."""
+    from srhmm_tpu.checks import compare_batched_decode
     from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import FULL, GmmHmm, stack_models
+    from srhmm_tpu.models import FULL
 
-    rng = np.random.default_rng(17)
+    rng = np.random.default_rng(17 + n_best)
     W, S, D, M = 5, 6, 4, 2
 
     def one(seed):
@@ -820,62 +469,13 @@ def test_fused_decode_full_cov_matches_block_engine():
         )
 
     vocab = stack_models([one(i) for i in range(W)]).astype(jnp.float32)
-    utts = []
-    for b in range(3):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
-            for st in range(S):
-                for _ in range(4):
-                    frames.append(mu[st, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
+    utts = _loop_utterances(vocab, rng, 3)
     batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-    lm = np.log(rng.dirichlet(np.ones(W), size=W))
-
-    cases = [
-        ("unigram", compose_word_loop_blocks(vocab), 1),
-        ("bigram", compose_word_loop_blocks(vocab, lm_logprobs=lm), 1),
-        ("unigram", compose_word_loop_blocks(vocab), 2),
-        ("unigram", compose_word_loop_blocks(vocab), 3),
-    ]
-    for arcs, graph, K in cases:
-        if K == 1:
-            f, b, se = token_passing_fused(
-                vocab, graph, batch, k_block=4, interpret=True
-            )
-            fin = np.asarray(f).reshape(1, W, se, -1)[:, :, :S]
-        elif K == 2:
-            f, b, se = token_passing_fused_k2(
-                vocab, graph, batch, k_block=4, interpret=True
-            )
-            fin = np.asarray(f).reshape(K, W, se, -1)[:, :, :S]
-        else:
-            f, b, se = token_passing_fused_kn(
-                vocab, graph, batch, n_best=K, k_block=2, interpret=True
-            )
-            fin = np.asarray(f).reshape(K, W, se, -1)[:, :, :S]
-        for bi, u in enumerate(utts):
-            log_b = composed_emissions(vocab, jnp.asarray(u, jnp.float32))
-            fx = np.asarray(
-                token_passing_blocks(graph, log_b, n_best=K)[0]
-            ).reshape(W, S, K)
-            for k in range(K):
-                ref, got = fx[:, :, k], fin[k, :, :, bi]
-                finite = np.isfinite(ref)
-                assert np.isfinite(got[finite]).all(), (arcs, K, bi, k)
-                np.testing.assert_allclose(
-                    got[finite], ref[finite], rtol=1e-4, atol=1e-3
-                )
-
-    results = decode_continuous_batch(
-        vocab, batch, lm_logprobs=lm, interpret=True
+    lm = np.log(rng.dirichlet(np.ones(W), size=W)) if lm_kind == "bigram" else None
+    out = compare_batched_decode(
+        vocab, batch, range(len(utts)), n_best=n_best, lm_logprobs=lm
     )
-    for bi, u in enumerate(utts):
-        ref = decode_continuous(
-            vocab, jnp.asarray(u, jnp.float32), lm_logprobs=lm, n_best=1
-        )[0]
-        assert results[bi][1] == ref[1], (bi, results[bi][1], ref[1])
-        np.testing.assert_allclose(results[bi][0], ref[0], rtol=2e-5)
+    assert out["ok"], out
 
 
 def _two_stream_word(seed, S=3, D1=4, D2=3):
@@ -978,59 +578,14 @@ def test_multistream_decode_genuine_two_streams():
     assert not np.allclose(lb_match, lb_conf)
 
 
-def test_fused_decode_kn_bigram_dst_tiling_matches_untiled():
-    """Round 5: the bigram K>2 destination-tiled take counter (w_blk < W)
-    must reproduce the single-block kernel exactly — scores AND
-    backpointers."""
-    from srhmm_tpu.decode.continuous import (
-        compose_word_loop_blocks,
-        token_passing_fused_kn,
-    )
-    from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.models import stack_models
-
-    rng = np.random.default_rng(23)
-    W, S, D = 6, 4, 6
-    vocab = stack_models([_word_model(i, S=S, D=D) for i in range(W)]).astype(
-        jnp.float32
-    )
-    lm = np.log(rng.dirichlet(np.ones(W), size=W))
-    graph = compose_word_loop_blocks(vocab, lm_logprobs=lm)
-    utts = []
-    for b in range(2):
-        frames = []
-        for w in rng.integers(0, W, size=3):
-            mu = np.asarray(vocab.streams[0].means)[w]
-            for s in range(S):
-                for _ in range(3):
-                    frames.append(mu[s, 0] + 0.4 * rng.normal(size=D))
-        utts.append(np.asarray(frames))
-    batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
-
-    ref_f, ref_bp, s_eff = token_passing_fused_kn(
-        vocab, graph, batch, n_best=3, k_block=1, w_blk=W, interpret=True
-    )
-    for wb in (1, 2, 3):
-        got_f, got_bp, s2 = token_passing_fused_kn(
-            vocab, graph, batch, n_best=3, k_block=1, w_blk=wb, interpret=True
-        )
-        assert s2 == s_eff
-        np.testing.assert_array_equal(np.asarray(got_bp), np.asarray(ref_bp))
-        rf, gf = np.asarray(ref_f), np.asarray(got_f)
-        fin = np.isfinite(rf)
-        assert (np.isfinite(gf) == fin).all()
-        np.testing.assert_allclose(gf[fin], rf[fin], rtol=1e-6)
-
-
 def test_multistream_fused_decode_matches_block_engine():
-    """Round 5: the fused K=1 kernel accepts per-stream batch tuples —
-    scores and word strings must match the XLA block engine running on
-    summed per-stream emissions."""
+    """The batched decoder accepts per-stream batch tuples: its scores and
+    word strings must match the block engine running on summed
+    per-stream emissions, utterance by utterance."""
     from srhmm_tpu.decode.continuous import (
         compose_word_loop_blocks,
         decode_continuous_batch,
         token_passing_blocks,
-        token_passing_fused,
     )
     from srhmm_tpu.io.dataset import pack_utterances
 
@@ -1055,29 +610,19 @@ def test_multistream_fused_decode_matches_block_engine():
     b2 = pack_utterances(utts2, pad_multiple=8, dtype=jnp.float32)
 
     graph = compose_word_loop_blocks(vocab2)
-    final, bps, s_eff = token_passing_fused(
-        vocab2, graph, (b1, b2), k_block=2, interpret=True
-    )
-    fin = np.asarray(final)
+    out = decode_continuous_batch(vocab2, (b1, b2), n_best=1)
     for b in range(3):
         frames = (jnp.asarray(utts1[b]), jnp.asarray(utts2[b]))
         log_b = composed_emissions(vocab2, frames)
-        fx = np.asarray(token_passing_blocks(graph, log_b, n_best=1)[0])
-        ref, got = fx[:, 0], fin[:, b]
-        finite = np.isfinite(ref)
-        assert (np.isfinite(got) == finite).all()
-        np.testing.assert_allclose(got[finite], ref[finite], rtol=2e-5, atol=1e-3)
-
-    # batched multi-stream entry point rides the fused route and recovers
-    # the word strings
-    out = decode_continuous_batch(vocab2, (b1, b2), n_best=1, interpret=True)
-    for b in range(3):
+        fx = np.asarray(token_passing_blocks(graph, log_b, n_best=1)[0])[:, 0]
+        exits = np.arange(4) * 3 + 2
+        np.testing.assert_allclose(out[b][0], fx[exits].max(), rtol=1e-5)
         assert out[b][1] == truths[b], (b, out[b][1], truths[b])
 
 
 def test_multistream_kbest_decode_matches_single_utterance():
-    """Round 5: multi-stream n_best>=2 rides the fused K-plane kernels;
-    the batched hypotheses must match the per-utterance engine."""
+    """Multi-stream n_best>=2: the batched hypotheses must match the
+    per-utterance engine."""
     from srhmm_tpu.decode.continuous import (
         decode_continuous,
         decode_continuous_batch,
@@ -1104,7 +649,7 @@ def test_multistream_kbest_decode_matches_single_utterance():
 
     for K in (2, 3):
         got = decode_continuous_batch(
-            vocab2, (b1, b2), n_best=K, interpret=True
+            vocab2, (b1, b2), n_best=K
         )
         for b in range(2):
             ref = decode_continuous(
@@ -1121,7 +666,7 @@ def test_heterogeneous_word_lengths_decode():
     """Round 5: words of DIFFERENT state counts decode through the
     word-loop engines — pad_stack_models supplies per-word final states,
     the graph carries them, and boundaries are detected at each word's
-    REAL exit.  Truth recovery + per-utterance == batched (fused)."""
+    REAL exit.  Truth recovery + per-utterance == batched."""
     from srhmm_tpu.decode.continuous import (
         decode_continuous,
         decode_continuous_batch,
@@ -1159,7 +704,7 @@ def test_heterogeneous_word_lengths_decode():
 
     batch = pack_utterances(utts, pad_multiple=8, dtype=jnp.float32)
     out = decode_continuous_batch(
-        vocab, batch, n_best=1, final_states=fn, interpret=True
+        vocab, batch, n_best=1, final_states=fn
     )
     for b in range(3):
         assert out[b][1] == truths[b], (b, out[b][1], truths[b])
@@ -1171,7 +716,7 @@ def test_heterogeneous_word_lengths_decode():
 
     # K-best: batched == per-utterance, word strings and scores
     out2 = decode_continuous_batch(
-        vocab, batch, n_best=2, final_states=fn, interpret=True
+        vocab, batch, n_best=2, final_states=fn
     )
     for b in range(3):
         ref2 = decode_continuous(

@@ -2,11 +2,11 @@
 
 The reference is strictly single-process (no MPI/NCCL/sockets anywhere,
 T1:25-33); our multi-host story is jax.distributed + GSPMD collectives.
-Real multi-host needs a pod; here TWO LOCAL PROCESSES each expose 4 forced
-host-platform CPU devices and initialize through
-`parallel.distributed.initialize`, giving an 8-device global mesh whose
-all-reduces cross the process boundary over the distributed runtime — the
-same code path a DCN-connected slice uses.  Each process computes a psum'd
+Real multi-host needs several machines; here TWO LOCAL PROCESSES each expose
+4 forced host-platform CPU devices and initialize through
+`parallel.distributed.initialize` with an explicit coordinator, giving an
+8-device global mesh whose all-reduces cross the process boundary over the
+distributed runtime — the same code path several hosts use.  Each process computes a psum'd
 E-step on its process-local batch shard; the coordinator asserts equality
 with the single-process result.
 """
@@ -27,8 +27,6 @@ _WORKER = r"""
 import json, os, sys
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 from srhmm_tpu.parallel import distributed
 

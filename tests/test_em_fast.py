@@ -197,17 +197,16 @@ def test_multi_stream_em():
     assert float(lp2) >= float(lp)
 
 
-def test_lane_major_e_step_matches_vmapped(fixture_frames):
-    """The lane-major batched E-step must produce the same statistics as the
-    vmapped per-utterance path."""
-    from srhmm_tpu.train.em import e_step, e_step_lane_major
-
+def test_lane_major_e_step_matches_vmapped():
+    """The E-step on the lane-major lattice kernels (ops/lattice_triton.py,
+    Pallas interpreter) must produce the same statistics as the vmapped
+    per-utterance scans, in float64."""
     rng = np.random.default_rng(11)
     model = _toy_model(S=5, M=2, D=6, seed=3)
     utts = [rng.normal(size=(40 + 13 * i, 6)) for i in range(5)]
     batch = pack_utterances(utts, pad_multiple=32, pad_batch_to=8, dtype=jnp.float64)
-    a = e_step(model, batch)
-    b = e_step_lane_major(model, batch)
+    a = e_step(model, batch, lattice="xla")
+    b = e_step(model, batch, lattice="triton", interpret=True)
     for la, lb in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
         np.testing.assert_allclose(
             np.asarray(la), np.asarray(lb), rtol=1e-9, atol=1e-9
@@ -268,18 +267,15 @@ def test_delta2_band_preserved_by_m_step():
     assert (trans[~support] == 0).all()
 
 
-def test_lane_major_pallas_lattices_match(fixture_frames):
-    """e_step_lane_major(lattices="pallas") — the time-blocked Pallas lattice
-    kernels in place of the XLA scans — must produce the same statistics
-    (f32, interpret mode on CPU)."""
-    from srhmm_tpu.train.em import e_step_lane_major
-
+def test_lane_major_pallas_lattices_match():
+    """The Pallas lattice kernels in place of the XLA scans must produce the
+    same statistics (f32, interpret mode on CPU)."""
     rng = np.random.default_rng(17)
     model = _toy_model(S=5, M=2, D=6, seed=3).astype(jnp.float32)
     utts = [rng.normal(size=(40 + 13 * i, 6)) for i in range(5)]
     batch = pack_utterances(utts, pad_multiple=32, pad_batch_to=8, dtype=jnp.float32)
-    a = e_step_lane_major(model, batch)
-    b = e_step_lane_major(model, batch, lattices="pallas")
+    a = e_step(model, batch, lattice="xla")
+    b = e_step(model, batch, lattice="triton", interpret=True)
     for la, lb in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
         np.testing.assert_allclose(
             np.asarray(la), np.asarray(lb), rtol=2e-4, atol=2e-4
@@ -394,9 +390,9 @@ def test_em_train_scan_matches_loop():
     m = model
     lps_loop = []
     for _ in range(4):
-        m, lp, nv = em_step(m, batch, fused=False)
+        m, lp, nv = em_step(m, batch)
         lps_loop.append(float(lp))
-    final, lps, nvs = em_train_scan(model, batch, 4, fused=False)
+    final, lps, nvs = em_train_scan(model, batch, 4)
     np.testing.assert_allclose(np.asarray(lps), np.asarray(lps_loop), rtol=1e-5)
     assert (np.asarray(nvs) == batch.batch_size).all()
     for a, b in zip(jax.tree.leaves(final), jax.tree.leaves(m)):
@@ -471,14 +467,14 @@ def test_global_cmvn_improves_f32_model_accuracy():
 
 @pytest.mark.parametrize("cov_type", ["diag", "full"])
 def test_multi_stream_fused_matches_xla(cov_type):
-    """The multi-stream fused lane-major E-step (round 3:
-    e_step_fused_lane_multi — per-stream q GEMMs summed before the state
-    logsumexp, per-stream moment lifts) must reproduce the XLA e_step for
-    a two-stream model, both covariance types, padded/odd shapes."""
+    """The multi-stream E-step on the lattice kernels (per-stream emissions
+    summed before the lattices, Pallas interpreter) must reproduce the XLA
+    e_step for a two-stream model, both covariance types, padded/odd
+    shapes and a zero-length row."""
     import numpy as np
 
-    from srhmm_tpu.models import FULL, GmmHmm, GmmStream, init_left_right_trans
-    from srhmm_tpu.train.em import e_step, e_step_fused_lane_multi
+    from srhmm_tpu.models import GmmHmm, GmmStream, init_left_right_trans
+    from srhmm_tpu.train.em import e_step
 
     rng = np.random.default_rng(3)
     S, M = 4, 2
@@ -520,7 +516,7 @@ def test_multi_stream_fused_matches_xla(cov_type):
     b1 = b1.replace(lengths=jnp.asarray(lengths, jnp.int32))
 
     ref = e_step(model, (b0, b1))
-    got = e_step_fused_lane_multi(model, (b0, b1), k_block=8, band=1, interpret=True)
+    got = e_step(model, (b0, b1), lattice="triton", interpret=True)
     for name in ["num_trans", "den_trans", "den_mix", "log_prob", "num_valid"]:
         a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
         np.testing.assert_allclose(

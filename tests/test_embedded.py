@@ -126,21 +126,70 @@ def _stats_close(ref, got, rtol):
         a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
         np.testing.assert_allclose(b, a, rtol=rtol, atol=rtol * max(1.0, np.abs(a).max()))
     np.testing.assert_allclose(
-        float(got.log_prob), float(ref.log_prob), rtol=1e-5
+        float(got.log_prob), float(ref.log_prob), rtol=rtol
     )
     assert float(got.num_valid) == float(ref.num_valid)
-    for f in ["w", "x", "xx"]:
-        a = np.asarray(getattr(ref.streams[0], f))
-        b = np.asarray(getattr(got.streams[0], f))
-        np.testing.assert_allclose(b, a, rtol=rtol, atol=rtol * max(1.0, np.abs(a).max()))
+    for p in range(len(ref.streams)):
+        for f in ["w", "x", "xx"]:
+            a = np.asarray(getattr(ref.streams[p], f))
+            b = np.asarray(getattr(got.streams[p], f))
+            np.testing.assert_allclose(
+                b, a, rtol=rtol, atol=rtol * max(1.0, np.abs(a).max())
+            )
+
+
+def _concatenated_reference(models, transcripts, feats, lengths):
+    """Unit-space statistics computed independently of batch_stats: per
+    utterance, the isolated E-step on the concatenated chain model
+    (models.concat_models), folded back onto the units — within-unit
+    transition blocks, and each chain arc's flow onto its unit's exit
+    self-loop."""
+    from srhmm_tpu.models import concat_models
+    from srhmm_tpu.train.em import StreamStats, SuffStats, _per_utterance_stats
+
+    P, S = models.trans.shape[0], models.trans.shape[-1]
+    trs = np.asarray(transcripts)
+    acc = None
+    for b in range(trs.shape[0]):
+        chain = concat_models(models, trs[b])
+        st = _per_utterance_stats(chain, feats[b], lengths[b])
+        L = trs.shape[1]
+        nt = np.zeros((P, S, S))
+        dt = np.zeros((P, S))
+        dm = np.zeros((P, S))
+        num = np.asarray(st.num_trans, np.float64)
+        streams = []
+        for k, u in enumerate(trs[b]):
+            blk = slice(k * S, (k + 1) * S)
+            nt[u] += num[blk, blk]
+            if k + 1 < L:
+                nt[u, S - 1, S - 1] += num[k * S + S - 1, (k + 1) * S]
+            dt[u] += np.asarray(st.den_trans)[blk]
+            dm[u] += np.asarray(st.den_mix)[blk]
+        for ps in st.streams:
+            fold = []
+            for arr in (ps.w, ps.x, ps.xx):
+                arr = np.asarray(arr, np.float64)
+                out = np.zeros((P, S) + arr.shape[1:])
+                for k, u in enumerate(trs[b]):
+                    out[u] += arr[k * S : (k + 1) * S]
+                fold.append(out)
+            streams.append(StreamStats(*fold))
+        one = SuffStats(
+            num_trans=nt, den_trans=dt, den_mix=dm, streams=tuple(streams),
+            log_prob=float(st.log_prob), num_valid=float(st.num_valid),
+        )
+        acc = one if acc is None else jax.tree.map(np.add, acc, one)
+    return acc
 
 
 @pytest.mark.parametrize("S,M,L,delta", [(3, 2, 3, 1), (4, 1, 2, 2), (2, 3, 5, 1)])
 def test_batch_stats_fused_matches_xla(S, M, L, delta):
-    """The fused composed-lattice Pallas E-step (interpret mode on CPU)
-    reproduces batch_stats across state counts, mixture counts, transcript
-    lengths, band widths, and ragged lengths (incl. padding lanes)."""
-    from srhmm_tpu.train.embedded import batch_stats, batch_stats_fused
+    """batch_stats (vmapped positional statistics + one scatter into unit
+    space) reproduces the concatenated-chain reference across state
+    counts, mixture counts, transcript lengths, band widths and ragged
+    lengths, in float64."""
+    from srhmm_tpu.train.embedded import batch_stats
 
     P, D, B, T = 5, 4, 4, 32
     rng = np.random.default_rng(S * 100 + M * 10 + L)
@@ -148,14 +197,14 @@ def test_batch_stats_fused_matches_xla(S, M, L, delta):
     for i in range(P):
         u = _unit(i, S=S, M=M, D=D)
         units.append(u.replace(trans=init_left_right_trans(S, delta=delta)))
-    models = stack_models(units).astype(jnp.float32)
+    models = stack_models(units)
     transcripts = jnp.asarray(rng.integers(0, P, size=(B, L)), jnp.int32)
-    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0, jnp.float32)
+    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0)
     lengths = jnp.asarray([T, T - 13, max(L * S, 3), T - 1], jnp.int32)
 
-    ref = batch_stats(models, transcripts, feats, lengths)
-    got = batch_stats_fused(models, transcripts, feats, lengths, k_block=8)
-    _stats_close(ref, got, rtol=5e-4)
+    got = batch_stats(models, transcripts, feats, lengths)
+    ref = _concatenated_reference(models, transcripts, feats, lengths)
+    _stats_close(ref, got, rtol=1e-8)
 
 
 def _full_unit(seed, S=3, M=2, D=4, spread=3.0):
@@ -185,28 +234,29 @@ def _full_unit(seed, S=3, M=2, D=4, spread=3.0):
 
 @pytest.mark.parametrize("S,M,L", [(3, 2, 3), (2, 3, 4)])
 def test_batch_stats_fused_full_cov_matches_xla(S, M, L):
-    """FULL covariance (the reference's canonical T1 regime) on the fused
-    composed-lattice kernels: the VMEM-resident bank packs the Cholesky
-    z-GEMM rows (pack_position_bank_full) and must reproduce the XLA
-    batch_stats — including the (D, D) second-moment statistics."""
-    from srhmm_tpu.train.embedded import batch_stats, batch_stats_fused
+    """FULL covariance (the reference's canonical T1 regime): batch_stats
+    reproduces the concatenated-chain reference, including the (D, D)
+    second-moment statistics."""
+    from srhmm_tpu.train.embedded import batch_stats
 
     P, D, B, T = 4, 4, 3, 24
     rng = np.random.default_rng(S * 10 + M)
-    models = stack_models([_full_unit(i, S=S, M=M, D=D) for i in range(P)])
+    models = stack_models(
+        [_full_unit(i, S=S, M=M, D=D) for i in range(P)]
+    ).astype(jnp.float64)
     transcripts = jnp.asarray(rng.integers(0, P, size=(B, L)), jnp.int32)
-    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0, jnp.float32)
+    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0)
     lengths = jnp.asarray([T, T - 7, max(L * S, 3)], jnp.int32)
 
-    ref = batch_stats(models, transcripts, feats, lengths)
-    got = batch_stats_fused(models, transcripts, feats, lengths, k_block=8)
-    _stats_close(ref, got, rtol=5e-4)
+    got = batch_stats(models, transcripts, feats, lengths)
+    ref = _concatenated_reference(models, transcripts, feats, lengths)
+    _stats_close(ref, got, rtol=1e-6)
 
 
 def test_embedded_em_step_fused_trains_identically():
-    """embedded_em_step(fused=True) and the XLA path produce matching
-    models after two EM iterations."""
-    from srhmm_tpu.train.embedded import embedded_em_step
+    """Two embedded_em_step calls and the driver's two-iteration chunk scan
+    (_embedded_chunk) produce matching models and log probs."""
+    from srhmm_tpu.train.embedded import _embedded_chunk, embedded_em_step
 
     P, S, M, D, B, T, L = 4, 3, 2, 5, 3, 24, 3
     rng = np.random.default_rng(7)
@@ -217,55 +267,59 @@ def test_embedded_em_step_fused_trains_identically():
     feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0, jnp.float32)
     lengths = jnp.asarray([T, T - 5, T - 2], jnp.int32)
 
-    mf, mx = models, models
+    mx = models
+    lps = []
     for _ in range(2):
-        mf, lpf, _ = embedded_em_step(mf, transcripts, feats, lengths, fused=True)
-        mx, lpx, _ = embedded_em_step(mx, transcripts, feats, lengths, fused=False)
-    np.testing.assert_allclose(float(lpf), float(lpx), rtol=1e-5)
+        mx, lpx, _ = embedded_em_step(mx, transcripts, feats, lengths)
+        lps.append(float(lpx))
+    mc, lpc, _ = _embedded_chunk(models, ((transcripts, feats, lengths),), 2, 0.0)
+    np.testing.assert_allclose(np.asarray(lpc), lps, rtol=1e-5)
     np.testing.assert_allclose(
-        np.asarray(mf.trans), np.asarray(mx.trans), rtol=1e-3, atol=1e-5
+        np.asarray(mc.trans), np.asarray(mx.trans), rtol=1e-3, atol=1e-5
     )
     np.testing.assert_allclose(
-        np.asarray(mf.streams[0].means),
+        np.asarray(mc.streams[0].means),
         np.asarray(mx.streams[0].means),
         rtol=1e-3, atol=1e-3,
     )
 
 
 def test_train_embedded_driver_fused_matches_xla(setup):
-    """The train_embedded DRIVER must produce the same trajectory on the
-    fused composed-lattice kernels as on the XLA path (round-3 fix: the
-    driver now auto-selects batch_stats_fused like embedded_em_step)."""
+    """The train_embedded DRIVER data-parallel over a 4-device mesh
+    (embedded_train_scan_sharded, empty pad utterances) follows the
+    single-device trajectory."""
+    from srhmm_tpu.parallel.mesh import make_mesh
+
     stacked, utts, transcripts = setup
     rng = np.random.default_rng(5)
     st = stacked.streams[0]
     perturbed = stacked.replace(
         streams=(st.replace(means=st.means + 0.5 * rng.normal(size=st.means.shape)),)
+    ).astype(jnp.float32)
+    mesh = make_mesh(n_data=4, n_model=1, devices=jax.devices()[:4])
+    r_one = train_embedded(
+        perturbed, utts, transcripts, threshold=1e-4, max_iterations=5
     )
-    r_xla = train_embedded(
-        perturbed, utts, transcripts, threshold=1e-4, max_iterations=5, fused=False
+    r_dp = train_embedded(
+        perturbed, utts, transcripts, threshold=1e-4, max_iterations=5,
+        mesh=mesh,
     )
-    r_fused = train_embedded(
-        perturbed, utts, transcripts, threshold=1e-4, max_iterations=5, fused=True
-    )
-    assert r_fused.iterations == r_xla.iterations
+    assert r_dp.iterations == r_one.iterations
     np.testing.assert_allclose(
-        r_fused.log_prob_history, r_xla.log_prob_history, rtol=2e-4
+        r_dp.log_prob_history, r_one.log_prob_history, rtol=2e-5
     )
     np.testing.assert_allclose(
-        np.asarray(r_fused.model.streams[0].means),
-        np.asarray(r_xla.model.streams[0].means),
+        np.asarray(r_dp.model.streams[0].means),
+        np.asarray(r_one.model.streams[0].means),
         rtol=2e-3, atol=2e-3,
     )
 
 
 def test_batch_stats_fused_multi_stream_matches_xla():
     """MULTI-STREAM embedded models (product-of-streams emission,
-    T1:1437-1441) on the fused composed-lattice kernels: per-stream
-    VMEM-resident banks, summed per-stream logsumexps in the emission
-    kernel, per-stream in-kernel moment scatters — must reproduce the XLA
-    batch_stats (round 4: closes the last silent composed fallback)."""
-    from srhmm_tpu.train.embedded import batch_stats, batch_stats_fused
+    T1:1437-1441): batch_stats reproduces the concatenated-chain reference
+    for both streams."""
+    from srhmm_tpu.train.embedded import batch_stats
 
     P, S, D, B, T, L = 4, 3, 4, 3, 24, 3
     rng = np.random.default_rng(11)
@@ -275,27 +329,19 @@ def test_batch_stats_fused_multi_stream_matches_xla():
         u2 = _unit(seed + 50, S=S, M=3, D=D)
         return u1.replace(streams=(u1.streams[0], u2.streams[0]))
 
-    models = stack_models([unit2(i) for i in range(P)]).astype(jnp.float32)
+    models = stack_models([unit2(i) for i in range(P)])
     transcripts = jnp.asarray(rng.integers(0, P, size=(B, L)), jnp.int32)
-    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0, jnp.float32)
+    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0)
     lengths = jnp.asarray([T, T - 7, max(L * S, 3)], jnp.int32)
 
-    ref = batch_stats(models, transcripts, feats, lengths)
-    got = batch_stats_fused(models, transcripts, feats, lengths, k_block=8)
-    _stats_close(ref, got, rtol=5e-4)
-    # second stream's stats too (helper only checks stream 0)
-    for f in ["w", "x", "xx"]:
-        a = np.asarray(getattr(ref.streams[1], f))
-        b = np.asarray(getattr(got.streams[1], f))
-        np.testing.assert_allclose(
-            b, a, rtol=5e-4, atol=5e-4 * max(1.0, np.abs(a).max())
-        )
+    got = batch_stats(models, transcripts, feats, lengths)
+    ref = _concatenated_reference(models, transcripts, feats, lengths)
+    _stats_close(ref, got, rtol=1e-8)
 
 
 def test_batch_stats_fused_multi_stream_full_cov_matches_xla():
-    """Multi-stream AND full covariance together on the fused composed
-    kernels (per-stream Cholesky z-GEMM banks)."""
-    from srhmm_tpu.train.embedded import batch_stats, batch_stats_fused
+    """Multi-stream AND full covariance together."""
+    from srhmm_tpu.train.embedded import batch_stats
 
     P, S, D, B, T, L = 3, 2, 3, 2, 16, 2
     rng = np.random.default_rng(21)
@@ -305,17 +351,11 @@ def test_batch_stats_fused_multi_stream_full_cov_matches_xla():
         u2 = _full_unit(seed + 70, S=S, M=1, D=D)
         return u1.replace(streams=(u1.streams[0], u2.streams[0]))
 
-    models = stack_models([unit2(i) for i in range(P)])
+    models = stack_models([unit2(i) for i in range(P)]).astype(jnp.float64)
     transcripts = jnp.asarray(rng.integers(0, P, size=(B, L)), jnp.int32)
-    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0, jnp.float32)
+    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0)
     lengths = jnp.asarray([T, T - 5], jnp.int32)
 
-    ref = batch_stats(models, transcripts, feats, lengths)
-    got = batch_stats_fused(models, transcripts, feats, lengths, k_block=8)
-    _stats_close(ref, got, rtol=5e-4)
-    for f in ["w", "x", "xx"]:
-        a = np.asarray(getattr(ref.streams[1], f))
-        b = np.asarray(getattr(got.streams[1], f))
-        np.testing.assert_allclose(
-            b, a, rtol=5e-4, atol=5e-4 * max(1.0, np.abs(a).max())
-        )
+    got = batch_stats(models, transcripts, feats, lengths)
+    ref = _concatenated_reference(models, transcripts, feats, lengths)
+    _stats_close(ref, got, rtol=1e-6)

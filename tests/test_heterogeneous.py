@@ -240,14 +240,13 @@ def test_recognize_cli_model_set_ensembling(tmp_path):
 
 @pytest.mark.parametrize("mode", ["total", "final"])
 def test_fused_scorer_heterogeneous_matches_xla(mode):
-    """HETEROGENEOUS padded vocabularies on the fused scoring kernel
-    (interpret mode on CPU): filler states are unreachable in-kernel and
-    final-state scoring gathers the per-word final_states indices — must
-    reproduce score_batch_log on the same padded stack (round-4 fix: the
-    fused scorer previously required final_states is None)."""
-    from srhmm_tpu.decode.scorer import score_batch_log
+    """HETEROGENEOUS padded vocabularies on the lattice-kernel scorer
+    (score_batch_lattice, Pallas interpreter on CPU): filler states are
+    unreachable and final-state scoring gathers the per-word final_states
+    indices — must reproduce score_batch_log on the same padded stack
+    (srhmm_tpu.checks.compare_scores: scores and rankings)."""
+    from srhmm_tpu.checks import compare_scores
     from srhmm_tpu.io.dataset import pack_utterances
-    from srhmm_tpu.ops.pallas.scoring_pallas import score_batch_fused_lane
 
     models = [
         _model(4, 2, seed=1, word="a"),
@@ -263,15 +262,7 @@ def test_fused_scorer_heterogeneous_matches_xla(mode):
         pad_multiple=16,
         dtype=jnp.float32,
     )
-    ref = np.asarray(
-        score_batch_log(stacked, batch, mode=mode, final_states=final_states)
+    out = compare_scores(
+        stacked, batch, mode=mode, final_states=final_states, interpret=True
     )
-    got = np.asarray(
-        score_batch_fused_lane(
-            stacked, batch, mode=mode, final_states=final_states,
-            k_block=8, interpret=True,
-        )
-    )
-    finite = np.isfinite(ref)
-    assert (np.isfinite(got) == finite).all()
-    np.testing.assert_allclose(got[finite], ref[finite], rtol=2e-4, atol=2e-3)
+    assert out["ok"], out

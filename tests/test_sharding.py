@@ -76,19 +76,19 @@ def test_sharded_scoring_matches():
 
 
 def test_fused_lane_sharded_matches_single_device():
-    """The explicit shard_map + psum composition of the fused lane-major
-    Pallas E-step (GSPMD cannot partition pallas_call) must match the
-    unsharded XLA e_step."""
+    """The explicit shard_map + psum composition of the production E-step
+    (the form a pallas_call lattice needs: GSPMD cannot partition it) must
+    match the unsharded e_step."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from srhmm_tpu.train.em import e_step, e_step_fused_lane_sharded
+    from srhmm_tpu.train.em import e_step, e_step_sharded
 
     model, batch = _toy()
     model = model.astype(jnp.float32)
     batch = batch.replace(features=batch.features.astype(jnp.float32))
     mesh = make_mesh(n_data=8, n_model=1)
     ref = e_step(model, batch)
-    got = e_step_fused_lane_sharded(model, batch, mesh, k_block=8)
+    got = e_step_sharded(model, batch, mesh)
     for name in ["num_trans", "den_trans", "den_mix", "log_prob", "num_valid"]:
         a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
         np.testing.assert_allclose(
@@ -103,12 +103,11 @@ def test_fused_lane_sharded_matches_single_device():
 def test_sharded_scan_trajectory_matches_per_step():
     """em_train_scan_sharded (the WHOLE N-iteration scan inside one
     shard_map, psum in the scan body) must reproduce the per-step
-    e_step_fused_lane_sharded + m_step loop's trajectory exactly —
-    multi-chip training with single-chip dispatch amortization."""
+    e_step_sharded + m_step loop's trajectory."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     from srhmm_tpu.train.em import (
-        e_step_fused_lane_sharded,
+        e_step_sharded,
         em_train_scan_sharded,
         m_step,
         _with_log_det,
@@ -120,14 +119,12 @@ def test_sharded_scan_trajectory_matches_per_step():
     mesh = make_mesh(n_data=8, n_model=1)
     n_iters = 4
 
-    final, lps, nvs = em_train_scan_sharded(
-        model, batch, n_iters, mesh, k_block=8
-    )
+    final, lps, nvs = em_train_scan_sharded(model, batch, n_iters, mesh)
 
     cur = model
     ref_lps = []
     for _ in range(n_iters):
-        st = e_step_fused_lane_sharded(cur, batch, mesh, k_block=8)
+        st = e_step_sharded(cur, batch, mesh)
         ref_lps.append(float(st.log_prob))
         cur = m_step(cur, st)
 
@@ -145,22 +142,15 @@ def test_sharded_scan_trajectory_matches_per_step():
 
 
 def test_fused_composed_sharded_matches_single_device():
-    """Data-parallel fused composed E-steps (embedded AND tied): explicit
-    shard_map + psum of the bank-gather kernels must match the unsharded
-    fused stats — the mixture-sharded multi-host EM all-reduce shape of
-    BASELINE config 5 (round 4)."""
+    """Data-parallel composed E-steps (embedded AND tied): explicit
+    shard_map + psum of the per-shard statistics must match the unsharded
+    statistics — the all-reduce shape of BASELINE config 5."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     from srhmm_tpu.models import stack_models
     from srhmm_tpu.models.tying import tie_from_models
-    from srhmm_tpu.train.embedded import (
-        batch_stats_fused,
-        batch_stats_fused_sharded,
-    )
-    from srhmm_tpu.train.tied import (
-        tied_batch_stats_fused,
-        tied_batch_stats_fused_sharded,
-    )
+    from srhmm_tpu.train.embedded import batch_stats, batch_stats_sharded
+    from srhmm_tpu.train.tied import tied_batch_stats, tied_batch_stats_sharded
 
     rng = np.random.default_rng(0)
     P, S, M, D, B, T, L = 4, 3, 2, 5, 8, 24, 3
@@ -191,10 +181,8 @@ def test_fused_composed_sharded_matches_single_device():
     lengths = jnp.asarray([T, T - 3, T, 9, T, T - 1, T, T - 5], jnp.int32)
     mesh = make_mesh(n_data=8, n_model=1)
 
-    ref = batch_stats_fused(models, transcripts, feats, lengths, k_block=8)
-    got = batch_stats_fused_sharded(
-        models, transcripts, feats, lengths, mesh, k_block=8
-    )
+    ref = batch_stats(models, transcripts, feats, lengths)
+    got = batch_stats_sharded(models, transcripts, feats, lengths, mesh)
     for r, g in zip(jax.tree.leaves(ref), jax.tree.leaves(got)):
         a = np.asarray(r)
         np.testing.assert_allclose(
@@ -205,10 +193,8 @@ def test_fused_composed_sharded_matches_single_device():
     sm = rng.integers(0, N, size=(P, S)).astype(np.int32)
     sm[0] = [0, 1, 2]
     tied = tie_from_models(models, sm).astype(jnp.float32)
-    tref = tied_batch_stats_fused(tied, transcripts, feats, lengths, k_block=8)
-    tgot = tied_batch_stats_fused_sharded(
-        tied, transcripts, feats, lengths, mesh, k_block=8
-    )
+    tref = tied_batch_stats(tied, transcripts, feats, lengths)
+    tgot = tied_batch_stats_sharded(tied, transcripts, feats, lengths, mesh)
     for r, g in zip(jax.tree.leaves(tref), jax.tree.leaves(tgot)):
         a = np.asarray(r)
         np.testing.assert_allclose(
@@ -217,10 +203,10 @@ def test_fused_composed_sharded_matches_single_device():
 
 
 def test_composed_sharded_scan_trajectory_matches_single_device():
-    """Dispatch-amortized multi-chip COMPOSED training (late round 4):
-    embedded_train_scan_sharded / tied_train_scan_sharded put the whole
-    N-iteration scan inside one shard_map (bank-gather kernels per shard,
-    unit/senone psum in the scan body, replicated update as the carry) —
+    """Multi-device COMPOSED training: embedded_train_scan_sharded /
+    tied_train_scan_sharded put the whole N-iteration scan inside one
+    shard_map (per-shard statistics, unit/senone psum in the scan body,
+    replicated update as the carry) —
     trajectories must equal the single-device _embedded_chunk /
     _tied_chunk scans; final parameters within reduction-order
     rounding."""
@@ -262,7 +248,7 @@ def test_composed_sharded_scan_trajectory_matches_single_device():
     packed = ((trs, feats, lens),)
     mesh = make_mesh(n_data=8, n_model=1)
 
-    ref_final, ref_lps, _ = _embedded_chunk(models, packed, 3, 0.0, True)
+    ref_final, ref_lps, _ = _embedded_chunk(models, packed, 3, 0.0)
     got_final, got_lps, _ = embedded_train_scan_sharded(
         models, packed, 3, mesh
     )
@@ -280,7 +266,7 @@ def test_composed_sharded_scan_trajectory_matches_single_device():
     sm = rng.integers(0, N, size=(P, S)).astype(np.int32)
     sm[0] = [0, 1, 2]
     tied = tie_from_models(models, sm).astype(jnp.float32)
-    tref_final, tref_lps, _ = _tied_chunk(tied, packed, 3, 0.0, True)
+    tref_final, tref_lps, _ = _tied_chunk(tied, packed, 3, 0.0)
     tgot_final, tgot_lps, _ = tied_train_scan_sharded(tied, packed, 3, mesh)
     np.testing.assert_allclose(
         np.asarray(tgot_lps), np.asarray(tref_lps), rtol=1e-5
@@ -291,3 +277,23 @@ def test_composed_sharded_scan_trajectory_matches_single_device():
                 np.asarray(a, np.float64), np.asarray(b, np.float64),
                 rtol=2e-3, atol=1e-4,
             )
+
+
+@pytest.mark.parametrize("n_data", [2, 4, 8])
+def test_train_fast_data_mesh_matches_single_device(n_data):
+    """train_fast(data_mesh=...) — the chunked convergence driver over
+    em_train_scan_sharded, the --data-parallel path — must follow the
+    single-device train_fast trajectory (iterations and log-prob history
+    up to the order of the cross-device sum)."""
+    from srhmm_tpu.train.em import train_fast
+
+    model, batch = _toy()
+    model = model.astype(jnp.float32)
+    batch = batch.replace(features=batch.features.astype(jnp.float32))
+    mesh = make_mesh(n_data=n_data, n_model=1, devices=jax.devices()[:n_data])
+    ref = train_fast(model, batch, max_iterations=4, chunk=2)
+    got = train_fast(model, batch, max_iterations=4, chunk=2, data_mesh=mesh)
+    assert got.iterations == ref.iterations
+    np.testing.assert_allclose(
+        got.log_prob_history, ref.log_prob_history, rtol=1e-5
+    )

@@ -153,101 +153,108 @@ def test_tied_em_step_jit(setup):
     np.testing.assert_allclose(w.sum(-1), 1.0, rtol=1e-6)
 
 
+def _materialized_reference(tied, transcripts, feats, lengths):
+    """Senone-space statistics through the EMBEDDED path: batch_stats on
+    the materialized per-unit models, each (unit, state) row summed into
+    its senone — independent of the tied positional code."""
+    from srhmm_tpu.train.embedded import batch_stats
+
+    ref = batch_stats(tied.materialize(), transcripts, feats, lengths)
+    sm = np.asarray(tied.state_map).reshape(-1)
+    N = tied.num_senones
+
+    def fold(a):
+        a = np.asarray(a, np.float64)
+        out = np.zeros((N,) + a.shape[2:])
+        np.add.at(out, sm, a.reshape((-1,) + a.shape[2:]))
+        return out
+
+    st = ref.streams[0]
+    return (
+        (fold(st.w), fold(st.x), fold(st.xx)),
+        fold(ref.den_mix),
+        np.asarray(ref.num_trans),
+        np.asarray(ref.den_trans),
+        float(ref.log_prob),
+        float(ref.num_valid),
+    )
+
+
+def _check_tied(got, ref, rtol):
+    for f, a in zip(["w", "x", "xx"], ref[0]):
+        b = np.asarray(getattr(got[0], f))
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=rtol * max(1.0, np.abs(a).max()))
+    for i in (1, 2, 3):
+        a, b = np.asarray(ref[i]), np.asarray(got[i])
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=rtol * max(1.0, np.abs(a).max()))
+    np.testing.assert_allclose(float(got[4]), ref[4], rtol=rtol)
+    assert float(got[5]) == ref[5]
+
+
 def test_tied_batch_stats_fused_matches_xla():
-    """The fused composed-lattice tied E-step (interpret mode on CPU)
-    reproduces tied_batch_stats incl. senone-space scatters and ragged
-    lengths."""
-    import numpy as np
-    import jax.numpy as jnp
+    """tied_batch_stats (senone-space scatter of positional statistics)
+    reproduces the embedded path on the materialized units folded by the
+    state map, incl. shared senones and ragged lengths (float64)."""
     from srhmm_tpu.bench.suite import _rand_model
-    from srhmm_tpu.models import stack_models
-    from srhmm_tpu.models.tying import tie_from_models
-    from srhmm_tpu.train.tied import tied_batch_stats, tied_batch_stats_fused
 
     P, S, M, D, B, T, L, N = 6, 3, 2, 5, 4, 32, 3, 10
     rng = np.random.default_rng(0)
     units = [
-        _rand_model(np.random.default_rng(100 + i), S, M, D, jnp.float32)
+        _rand_model(np.random.default_rng(100 + i), S, M, D, jnp.float64)
         .replace(word=f"t{i}")
         for i in range(P)
     ]
     sm = rng.integers(0, N, size=(P, S)).astype(np.int32)
     sm[:4, :] = np.minimum(np.arange(4 * S).reshape(-1, S), N - 1)
-    tied = tie_from_models(stack_models(units), sm).astype(jnp.float32)
+    tied = tie_from_models(stack_models(units), sm)
     tr = jnp.asarray(rng.integers(0, P, size=(B, L)), jnp.int32)
-    feats = jnp.asarray(rng.normal(size=(B, T, D)), jnp.float32)
+    feats = jnp.asarray(rng.normal(size=(B, T, D)))
     lengths = jnp.asarray([32, 20, 32, 9], jnp.int32)
 
-    ref = tied_batch_stats(tied, tr, feats, lengths)
-    got = tied_batch_stats_fused(tied, tr, feats, lengths, k_block=8)
-    for f in ["w", "x", "xx"]:
-        a = np.asarray(getattr(ref[0], f))
-        b = np.asarray(getattr(got[0], f))
-        np.testing.assert_allclose(b, a, rtol=5e-4, atol=5e-4 * max(1.0, np.abs(a).max()))
-    for i in (1, 2, 3):
-        a, b = np.asarray(ref[i]), np.asarray(got[i])
-        np.testing.assert_allclose(b, a, rtol=5e-4, atol=5e-4 * max(1.0, np.abs(a).max()))
-    np.testing.assert_allclose(float(got[4]), float(ref[4]), rtol=1e-5)
-    assert float(got[5]) == float(ref[5])
+    got = tied_batch_stats(tied, tr, feats, lengths)
+    _check_tied(got, _materialized_reference(tied, tr, feats, lengths), 1e-8)
 
 
 def test_tied_batch_stats_fused_full_cov_matches_xla():
-    """FULL-covariance senones on the fused composed-lattice kernels: the
-    senone inventory is packed as the VMEM-resident Cholesky z-GEMM bank
-    and must reproduce tied_batch_stats incl. (D, D) second moments."""
+    """FULL-covariance senones: tied_batch_stats reproduces the embedded
+    path on the materialized units, incl. (D, D) second moments."""
     from test_embedded import _full_unit
-
-    from srhmm_tpu.models import stack_models
-    from srhmm_tpu.models.tying import tie_from_models
-    from srhmm_tpu.train.tied import tied_batch_stats, tied_batch_stats_fused
 
     P, S, M, D, B, T, L, N = 4, 3, 2, 4, 3, 24, 3, 8
     rng = np.random.default_rng(3)
     units = [_full_unit(200 + i, S=S, M=M, D=D) for i in range(P)]
     sm = rng.integers(0, N, size=(P, S)).astype(np.int32)
     sm[0] = [0, 1, 2]
-    tied = tie_from_models(stack_models(units), sm).astype(jnp.float32)
+    tied = tie_from_models(stack_models(units), sm).astype(jnp.float64)
     tr = jnp.asarray(rng.integers(0, P, size=(B, L)), jnp.int32)
-    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0, jnp.float32)
+    feats = jnp.asarray(rng.normal(size=(B, T, D)) * 2.0)
     lengths = jnp.asarray([T, 15, T - 2], jnp.int32)
 
-    ref = tied_batch_stats(tied, tr, feats, lengths)
-    got = tied_batch_stats_fused(tied, tr, feats, lengths, k_block=8)
-    for f in ["w", "x", "xx"]:
-        a = np.asarray(getattr(ref[0], f))
-        b = np.asarray(getattr(got[0], f))
-        np.testing.assert_allclose(
-            b, a, rtol=5e-4, atol=5e-4 * max(1.0, np.abs(a).max())
-        )
-    for i in (1, 2, 3):
-        a, b = np.asarray(ref[i]), np.asarray(got[i])
-        np.testing.assert_allclose(
-            b, a, rtol=5e-4, atol=5e-4 * max(1.0, np.abs(a).max())
-        )
-    np.testing.assert_allclose(float(got[4]), float(ref[4]), rtol=1e-5)
-    assert float(got[5]) == float(ref[5])
+    got = tied_batch_stats(tied, tr, feats, lengths)
+    _check_tied(got, _materialized_reference(tied, tr, feats, lengths), 1e-6)
 
 
 def test_train_tied_driver_fused_matches_xla(setup):
-    """The train_tied DRIVER must produce the same trajectory on the fused
-    composed-lattice kernels as on the XLA path (round-3 fix: the driver
-    now auto-selects tied_batch_stats_fused like tied_em_step)."""
+    """The train_tied DRIVER data-parallel over a 4-device mesh
+    (tied_train_scan_sharded, empty pad utterances) follows the
+    single-device trajectory."""
+    from srhmm_tpu.parallel.mesh import make_mesh
+
     stacked, utts, transcripts = setup
     P, S = stacked.trans.shape[0], stacked.trans.shape[-1]
     sm = np.arange(P * S).reshape(P, S) % (P * S // 2)  # 2-way sharing
-    tied = tie_from_models(stacked, sm.astype(np.int32))
-    r_xla = train_tied(
-        tied, utts, transcripts, threshold=1e-4, max_iterations=4, fused=False
+    tied = tie_from_models(stacked, sm.astype(np.int32)).astype(jnp.float32)
+    mesh = make_mesh(n_data=4, n_model=1, devices=jax.devices()[:4])
+    r_one = train_tied(tied, utts, transcripts, threshold=1e-4, max_iterations=4)
+    r_dp = train_tied(
+        tied, utts, transcripts, threshold=1e-4, max_iterations=4, mesh=mesh
     )
-    r_fused = train_tied(
-        tied, utts, transcripts, threshold=1e-4, max_iterations=4, fused=True
-    )
-    assert r_fused.iterations == r_xla.iterations
+    assert r_dp.iterations == r_one.iterations
     np.testing.assert_allclose(
-        r_fused.log_prob_history, r_xla.log_prob_history, rtol=2e-4
+        r_dp.log_prob_history, r_one.log_prob_history, rtol=2e-4
     )
     np.testing.assert_allclose(
-        np.asarray(r_fused.model.senones.means),
-        np.asarray(r_xla.model.senones.means),
+        np.asarray(r_dp.model.senones.means),
+        np.asarray(r_one.model.senones.means),
         rtol=2e-3, atol=2e-3,
     )
